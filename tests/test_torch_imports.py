@@ -1,0 +1,37 @@
+"""The port imports without JAX and pulls in nothing of the reference."""
+
+import os
+import subprocess
+import sys
+import textwrap
+
+import pytest
+
+pytest.importorskip("torch")
+
+SRC = os.path.join(os.path.dirname(__file__), "..", "src")
+
+PROBE = textwrap.dedent("""
+    import importlib, pkgutil, sys
+    sys.modules["jax"] = None          # any `import jax` now raises
+    import repro_torch
+    names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                                   "repro_torch.")]
+    for name in names:
+        importlib.import_module(name)
+    bad = sorted(n for n in sys.modules
+                 if sys.modules[n] is not None
+                 and (n.startswith("jax") or n == "repro"
+                      or n.startswith("repro.")))
+    print(len(names), bad)
+    assert not bad, bad
+""")
+
+
+def test_port_imports_without_jax_or_reference():
+    env = dict(os.environ, PYTHONPATH=os.path.abspath(SRC))
+    r = subprocess.run([sys.executable, "-c", PROBE], env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
+    n_modules = int(r.stdout.split()[0])
+    assert n_modules >= 15, r.stdout
