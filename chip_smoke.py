@@ -6,16 +6,20 @@ Phases (each raises on failure, so any failed check exits non-zero):
   1. device   - the card's name and power limit (nvidia-smi)
   2. build    - compile every CUDA source of the port (one nvcc each, in
                 parallel)
-  3. kernels  - each kernel against its plain PyTorch version on the card,
-                at the Pallas sweep shapes and at the serving shape; times
-                of the kernel, the plain version and one PyTorch library
-                call (a yardstick the port never calls), beside the bound
-  4. model    - yi-9b at full width, 2 layers, fp32: prefill + 2 decode
-                steps through the kernels, against the plain CPU path on the
-                same weights
-  5. serve    - yi-9b at full width and depth (bf16, random weights from a
-                seeded generator on the card): 4 requests through
-                ServeEngine, counting the kernel launches of that run
+  3. kernels  - each kernel (flash attention, decode attention, SSD chunk
+                scan) against its plain PyTorch version on the card, at the
+                Pallas sweep shapes and at the serving shape; times of the
+                kernel, the plain version and, where one exists, one PyTorch
+                library call (a yardstick the port never calls), beside the
+                bound
+  4. model    - yi-9b and mamba2-2.7b at full width, 2 layers, fp32:
+                prefill + 2 decode steps through the kernels, against the
+                plain CPU path on the same weights
+  5. serve    - yi-9b, then mamba2-2.7b, at full width and depth (bf16,
+                random weights from a seeded generator on the card): 4
+                requests through ServeEngine, counting the kernel launches
+                of prefill, of the whole generate run and of a teacher-forced
+                forward pass
 The last two lines are the kernels JSON line and the result line.
 """
 
@@ -41,8 +45,10 @@ from repro_torch.kernels.decode_attention import ops as decode_ops  # noqa: E402
 from repro_torch.kernels.decode_attention.ref import decode_attention_ref  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as flash_ops  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import attention_ref  # noqa: E402
+from repro_torch.kernels.ssd import ops as ssd_ops  # noqa: E402
+from repro_torch.kernels.ssd.ref import ssd_ref  # noqa: E402
 from repro_torch.models.model import Model  # noqa: E402
-from repro_torch.models.param import count_params, init_params  # noqa: E402
+from repro_torch.models.param import count_params, init_params, tree_map  # noqa: E402
 from repro_torch.serve import Request, ServeEngine  # noqa: E402
 
 # H100 SXM data-sheet peaks (dense): bf16 tensor cores, fp32 CUDA cores, HBM
@@ -64,8 +70,20 @@ DECODE_SWEEP = [
     (1, 300, 8, 2, 64, 0),
     (3, 256, 16, 2, 128, 64),
 ]
+# (b, s, h, p, g, n, chunk): the Pallas sweep of tests/test_kernels.py
+SSD_SWEEP = [
+    (2, 128, 4, 16, 1, 32, 32),
+    (1, 256, 8, 32, 2, 16, 64),
+    (1, 128, 4, 1, 1, 16, 16),
+    (2, 192, 6, 8, 3, 8, 64),
+]
+SSD_TOL = {torch.float32: 5e-4, torch.bfloat16: 2e-2}
 # the serving shape of phase 5
 SERVE_B, SERVE_PROMPTS, SERVE_NEW, SERVE_CACHE = 4, (2048, 1536, 1024, 512), 32, 4096
+# the counted wrappers, by kernel name
+KERNELS = {"flash_attention": flash_ops.flash_attention,
+           "decode_attention": decode_ops.decode_attention,
+           "ssd_chunk_scan": ssd_ops.ssd_chunk_scan}
 
 
 def log(msg: str) -> None:
@@ -111,6 +129,15 @@ def bound_ms(flops: float, nbytes: float, dtype) -> tuple:
 
 def max_err(a, b) -> float:
     return float((a.float() - b.float()).abs().max())
+
+
+def zero_counts() -> None:
+    for fn in KERNELS.values():
+        fn.launches = 0
+
+
+def counts() -> dict:
+    return {name: fn.launches for name, fn in KERNELS.items()}
 
 
 # ------------------------------------------------------------------ phases
@@ -274,14 +301,82 @@ def phase_decode(gen, rng, main_shape, main_lengths) -> dict:
     return rec
 
 
-def phase_model(seed: int) -> None:
+def _ssd_inputs(gen, shape, dtype):
+    b, s, h, p, g, n = shape[:6]
+    dev = torch.device("cuda")
+    x = torch.randn((b, s, h, p), generator=gen, device=dev).to(dtype)
+    dt = F.softplus(torch.randn((b, s, h), generator=gen, device=dev))
+    A = -torch.exp(0.5 * torch.randn((h,), generator=gen, device=dev))
+    B = torch.randn((b, s, g, n), generator=gen, device=dev).to(dtype)
+    C = torch.randn((b, s, g, n), generator=gen, device=dev).to(dtype)
+    return x, dt, A, B, C
+
+
+def _ssd_check(gen, shape, dtype, label="") -> float:
+    """One kernel launch against ssd_ref on the same inputs, y and state
+    within SSD_TOL (abs + rel); returns the larger max error."""
+    args = _ssd_inputs(gen, shape, dtype)
+    y, state = ssd_ops.ssd_chunk_scan(*args, chunk=shape[6])
+    torch.cuda.synchronize()
+    yr, sr = ssd_ref(*args)
+    err = max(max_err(y, yr), max_err(state, sr))
+    log(f"  ssd {shape} x/B/C {str(dtype)[6:]}{label}: max_abs_err y "
+        f"{max_err(y, yr):.3g} state {max_err(state, sr):.3g}")
+    tol = SSD_TOL[dtype]
+    if not (within(y, yr, tol) and within(state, sr, tol)):
+        raise AssertionError(f"ssd_chunk_scan {shape} {dtype}: err {err} > "
+                             f"{tol}")
+    return err
+
+
+def phase_ssd(gen, main_shape) -> dict:
+    for dtype in (torch.float32, torch.bfloat16):
+        for shape in SSD_SWEEP:
+            _ssd_check(gen, shape, dtype)
+    dtype = torch.bfloat16
+    b, s, h, p, g, n, chunk = main_shape
+    _ssd_check(gen, main_shape, torch.float32, " (serving shape)")
+    err = _ssd_check(gen, main_shape, dtype, " (serving shape)")
+    args = _ssd_inputs(gen, main_shape, dtype)       # 100 MB: L2-cold
+    ms = time_ms(lambda *a: ssd_ops.ssd_chunk_scan(*a, chunk=chunk), [args],
+                 10)
+    plain_ms = time_ms(ssd_ref, [args], 1)
+    q = min(chunk, s)
+    nc = s // q
+    flops = 2.0 * q * p * (q + 2 * n) * b * h * nc + 2.0 * q * q * n * b * g * nc
+    x, dt, A, B, C = args
+    nbytes = 2 * x.numel() * x.element_size() + sum(
+        t.numel() * t.element_size() for t in (dt, A, B, C)) + b * h * n * p * 4
+    bms, by = bound_ms(flops, nbytes, dtype)
+    rec = dict(name="ssd_chunk_scan", route="cuda",
+               source="src/repro_torch/kernels/ssd/csrc/ssd.cu",
+               replaces="src/repro/kernels/ssd/kernel.py:72",
+               max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
+               bound_by=by, library_ms=None)
+    log(json.dumps({"kernel_check": rec["name"], "shape": list(main_shape),
+                    "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                    "library_ms": None, "bound_us": bms * 1e3,
+                    "flops": flops, "bytes": nbytes,
+                    "achieved_tflops": flops / ms / 1e9,
+                    "tile": ssd_ops.plan(q, n, p),
+                    "check_launches": ssd_ops.ssd_chunk_scan.launches}))
+    return rec
+
+
+def _layer_kinds(cfg) -> tuple:
+    """(attention layers, SSM layers) of ``cfg``."""
+    n_attn = sum(spec.kind == "attn" for spec in cfg.layer_specs())
+    return n_attn, cfg.n_layers - n_attn
+
+
+def phase_model(arch: str, seed: int, s: int) -> None:
     """Full width, 2 layers, fp32: kernels on the card vs the plain CPU path.
 
     Tolerance 2e-3 on the logits, the reference's own tolerance between two
     attention paths (tests/test_models.py): both sides are fp32 (TF32 off),
     and only the order of the sums differs (cuBLAS and the kernels' tiling
-    against the CPU's BLAS and plain attention)."""
-    cfg = replace(get_config("yi-9b"), n_layers=2, dtype="float32")
+    against the CPU's BLAS and plain attention / chunked SSD)."""
+    cfg = replace(get_config(arch), n_layers=2, dtype="float32")
     tol = 2e-3
     cpu = Model(cfg, device="cpu")
     card = Model(cfg)
@@ -289,10 +384,9 @@ def phase_model(seed: int) -> None:
                         torch.Generator().manual_seed(seed), device="cpu")
     p_card = _to(p_cpu, card.device)
     rng = np.random.default_rng(seed)
-    b, s = 2, 128
+    b = 2
     toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (b, s + 2)))
-    flash_ops.flash_attention.launches = 0
-    decode_ops.decode_attention.launches = 0
+    zero_counts()
     errs = []
     l_cpu, c_cpu = cpu.prefill(p_cpu, toks[:, :s], cache_len=s + 8)
     l_card, c_card = card.prefill(p_card, toks[:, :s].cuda(), cache_len=s + 8)
@@ -304,16 +398,17 @@ def phase_model(seed: int) -> None:
                                           pos.cuda())
         errs.append(max_err(l_card.cpu(), l_cpu))
     torch.cuda.synchronize()
-    launches = (flash_ops.flash_attention.launches,
-                decode_ops.decode_attention.launches)
-    log(f"  model yi-9b width {cfg.d_model}, 2 layers, fp32, b={b}, "
+    launches = counts()
+    n_attn, n_ssm = _layer_kinds(cfg)
+    want = {"flash_attention": n_attn, "decode_attention": 2 * n_attn,
+            "ssd_chunk_scan": n_ssm}
+    log(f"  model {arch} width {cfg.d_model}, 2 layers, fp32, b={b}, "
         f"prompt {s}: logits max_abs_err prefill {errs[0]:.3g}, decode "
-        f"{errs[1]:.3g} {errs[2]:.3g} (tol {tol}); launches flash "
-        f"{launches[0]} decode {launches[1]}")
+        f"{errs[1]:.3g} {errs[2]:.3g} (tol {tol}); launches {launches}")
     if not max(errs) <= tol:
-        raise AssertionError(f"model logits differ: {errs} > {tol}")
-    if launches != (cfg.n_layers, 2 * cfg.n_layers):
-        raise AssertionError(f"model phase launches {launches}")
+        raise AssertionError(f"{arch} model logits differ: {errs} > {tol}")
+    if launches != want:
+        raise AssertionError(f"{arch} model launches {launches}, want {want}")
 
 
 def _to(tree, device):
@@ -322,54 +417,95 @@ def _to(tree, device):
     return tree.to(device)
 
 
-def phase_serve(seed: int) -> dict:
-    cfg = get_config("yi-9b")
+def decode_vs_forward_fp32(cfg, params, toks, steps: int = 8) -> dict:
+    """Greedy decode from the prefill cache against the teacher-forced
+    forward pass over the same tokens, at full depth in fp32 (the served
+    bf16 weights, widened).  In bf16 the two paths round at different places
+    (the SSD kernel returns y in bf16 before the skip term is added, the
+    decode step adds it in fp32), and many layers of random weights amplify
+    that; in fp32 only the order of the sums differs."""
+    model = Model(replace(cfg, dtype="float32"))
+    p32 = tree_map(lambda t: t.float(), params)
+    b, s = toks.shape
+    zero_counts()
+    logits, cache = model.prefill(p32, toks)
+    dec = [logits]
+    for i in range(steps - 1):
+        tok = torch.argmax(dec[-1], -1)
+        logits, cache = model.decode_step(
+            p32, cache, tok, torch.full((b,), s + i, device="cuda"))
+        dec.append(logits)
+    dec = torch.stack(dec, 1)                                 # (b, steps, V)
+    gen = torch.argmax(dec[:, :-1], -1)
+    full, _ = model.forward(p32, torch.cat([toks, gen], 1))
+    ref = full[:, s - 1:]
+    torch.cuda.synchronize()
+    out = dict(fp32_decode_vs_forward_max_abs_diff=max_err(dec, ref),
+               fp32_logits_std=float(ref.std()),
+               fp32_teacher_forcing_agreement=float(
+                   (torch.argmax(ref, -1) == torch.argmax(dec, -1))
+                   .float().mean()),
+               fp32_launches=counts())
+    log(f"  serve: fp32, {cfg.n_layers} layers: " + json.dumps(out))
+    if not out["fp32_teacher_forcing_agreement"] >= 0.5:
+        raise AssertionError(f"fp32 decode disagrees with teacher forcing: "
+                             f"{out}")
+    return out
+
+
+def phase_serve(arch: str, seed: int, *, min_agreement=0.5,
+                fp32_check: bool = False) -> dict:
+    """Serve 4 requests at full width and depth in bf16.  Greedy decode must
+    agree with teacher forcing on ``min_agreement`` of the tokens (None:
+    reported only); ``fp32_check`` adds ``decode_vs_forward_fp32``."""
+    cfg = get_config(arch)
     model = Model(cfg)
     t0 = time.perf_counter()
     params = init_params(model.param_template(),
                          torch.Generator(device="cuda").manual_seed(seed))
     torch.cuda.synchronize()
-    log(f"  serve: yi-9b {count_params(model.param_template()):,} params "
+    log(f"  serve: {arch} {count_params(model.param_template()):,} params "
         f"bf16, {cfg.n_layers} layers, init {time.perf_counter() - t0:.1f} s")
     rng = np.random.default_rng(seed)
     prompts = [rng.integers(0, cfg.vocab_size - 1, n).tolist()
                for n in SERVE_PROMPTS]
     reqs = [Request(p, SERVE_NEW) for p in prompts]
     engine = ServeEngine(model, params, cache_len=SERVE_CACHE)
+    n_attn, n_ssm = _layer_kinds(cfg)
+    decode_steps = SERVE_NEW - 1
 
-    # warm-up prefill of the same batch: its time, and its greedy token
+    # warm-up prefill of the same batch: its time, launches and greedy token
     toks = np.full((SERVE_B, max(SERVE_PROMPTS)), cfg.vocab_size - 1, np.int64)
     for i, p in enumerate(prompts):
         toks[i, -len(p):] = p
     toks = torch.from_numpy(toks).cuda()
+    zero_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     first_logits, warm_cache = model.prefill(params, toks,
                                              cache_len=SERVE_CACHE)
     torch.cuda.synchronize()
     prefill_s = time.perf_counter() - t0
+    prefill_launches = counts()
     first = torch.argmax(first_logits, -1).tolist()
 
     torch.cuda.reset_peak_memory_stats()
-    flash_ops.flash_attention.launches = 0
-    decode_ops.decode_attention.launches = 0
+    zero_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     outs = engine.generate(reqs)
     torch.cuda.synchronize()
     total_s = time.perf_counter() - t0
-    launches = {"flash_attention": flash_ops.flash_attention.launches,
-                "decode_attention": decode_ops.decode_attention.launches}
+    launches = counts()
 
-    decode_steps = SERVE_NEW - 1
     decode_s = total_s - prefill_s
     stats = dict(prefill_s=prefill_s, generate_s=total_s,
                  decode_tok_per_s=SERVE_B * decode_steps / decode_s,
                  decode_step_ms=decode_s / decode_steps * 1e3,
                  prefill_tok_per_s=SERVE_B * max(SERVE_PROMPTS) / prefill_s,
                  peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
-                 launches=launches)
-    log("  serve: " + json.dumps(stats))
+                 prefill_launches=prefill_launches, launches=launches)
+    log(f"  serve {arch}: " + json.dumps(stats))
 
     if [len(o) for o in outs] != [SERVE_NEW] * SERVE_B:
         raise AssertionError(f"serve: token counts {[len(o) for o in outs]}")
@@ -378,20 +514,32 @@ def phase_serve(seed: int) -> dict:
     if [o[0] for o in outs] != first:
         raise AssertionError(f"serve: first tokens {[o[0] for o in outs]} "
                              f"!= greedy prefill tokens {first}")
-    want = {"flash_attention": cfg.n_layers,
-            "decode_attention": cfg.n_layers * decode_steps}
+    want_prefill = {"flash_attention": n_attn, "decode_attention": 0,
+                    "ssd_chunk_scan": n_ssm}
+    want = dict(want_prefill, decode_attention=n_attn * decode_steps)
+    if prefill_launches != want_prefill:
+        raise AssertionError(f"serve: prefill launches {prefill_launches}, "
+                             f"want {want_prefill}")
     if launches != want:
         raise AssertionError(f"serve: launches {launches}, want {want}")
 
     # teacher forcing over prompt + generated tokens: greedy decode should
     # pick the argmax of the full forward pass at each position
     gen = torch.tensor([o[:-1] for o in outs], device="cuda")
+    zero_counts()
     full, _ = model.forward(params, torch.cat([toks, gen], 1))
+    torch.cuda.synchronize()
+    tf_launches = counts()
+    if tf_launches != want_prefill:
+        raise AssertionError(f"serve: teacher-forced forward launches "
+                             f"{tf_launches}, want {want_prefill}")
     s = toks.shape[1]
     tf = torch.argmax(full[:, s - 1:], -1).cpu()
     agree = float((tf == torch.tensor(outs)).float().mean())
-    log(f"  serve: decode vs teacher-forcing greedy agreement {agree:.4f}")
-    if not agree >= 0.5:
+    log(f"  serve: teacher-forced forward over {full.shape[1]} tokens, "
+        f"launches {tf_launches}; decode vs teacher-forcing greedy agreement "
+        f"{agree:.4f}")
+    if min_agreement is not None and not agree >= min_agreement:
         raise AssertionError(f"serve: decode disagrees with teacher forcing "
                              f"({agree})")
     stats["teacher_forcing_agreement"] = agree
@@ -416,6 +564,10 @@ def phase_serve(seed: int) -> dict:
                  decode_step_idle_share=1.0 - graph_ms / eager_ms)
     log(f"  serve: decode step eager {eager_ms:.2f} ms, device (CUDA graph) "
         f"{graph_ms:.2f} ms, idle share {1.0 - graph_ms / eager_ms:.3f}")
+    if fp32_check:
+        del full, warm_cache, step_logits
+        torch.cuda.empty_cache()
+        stats.update(decode_vs_forward_fp32(cfg, params, toks))
     return stats
 
 
@@ -438,26 +590,41 @@ def main() -> int:
     decode_main = (SERVE_B, SERVE_CACHE, 32, 4, 128, 0)
     main_lengths = rng.integers(max(SERVE_PROMPTS) + 1,
                                 max(SERVE_PROMPTS) + SERVE_NEW, SERVE_B)
+    ssd_cfg = get_config("mamba2-2.7b").ssm
+    ssd_main = (SERVE_B, max(SERVE_PROMPTS), ssd_cfg.n_heads,
+                ssd_cfg.head_dim, ssd_cfg.n_groups, ssd_cfg.d_state,
+                ssd_cfg.chunk)
     kernels = [phase_flash(gen, flash_main),
-               phase_decode(gen, rng, decode_main, main_lengths)]
-
-    log("== phase 4: model, full width, 2 layers, fp32, card vs CPU")
-    phase_model(args.seed)
+               phase_decode(gen, rng, decode_main, main_lengths),
+               phase_ssd(gen, ssd_main)]
     torch.cuda.empty_cache()
 
+    log("== phase 4: model, full width, 2 layers, fp32, card vs CPU")
+    phase_model("yi-9b", args.seed, 128)
+    # 300 is not a multiple of the 256-row chunk: the model's pad path
+    phase_model("mamba2-2.7b", args.seed, 300)
+    torch.cuda.empty_cache()
+
+    # each model's path is read on its own: its serve phase sets the
+    # counts to 0 before it runs and reads them after
     log("== phase 5: serve, yi-9b full width and depth, bf16")
-    stats = phase_serve(args.seed)
+    stats = {"yi-9b": phase_serve("yi-9b", args.seed)}
+    torch.cuda.empty_cache()
+    log("== phase 5: serve, mamba2-2.7b full width and depth, bf16")
+    # bf16 decode vs teacher forcing is reported; the paths are held to
+    # each other in fp32 (decode_vs_forward_fp32)
+    stats["mamba2-2.7b"] = phase_serve("mamba2-2.7b", args.seed,
+                                       min_agreement=None, fp32_check=True)
+    path_of = {"flash_attention": "yi-9b", "decode_attention": "yi-9b",
+               "ssd_chunk_scan": "mamba2-2.7b"}
     for rec in kernels:
-        rec["launches"] = stats["launches"][rec["name"]]
+        rec["launches"] = stats[path_of[rec["name"]]]["launches"][rec["name"]]
 
     log(f"total {time.perf_counter() - t_start:.1f} s")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({
-        "kernels": [{k: rec[k] for k in keys} for rec in kernels],
-        "not_ported": [{"name": "ssd_chunk_scan",
-                        "replaces": "src/repro/kernels/ssd/kernel.py:72",
-                        "status": "queued (ROADMAP B3)"}]}))
+        "kernels": [{k: rec[k] for k in keys} for rec in kernels]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

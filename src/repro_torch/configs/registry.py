@@ -1,7 +1,7 @@
 """Architecture registry of the port: the archs ported so far.
 
-Only ``yi-9b`` runs in the port yet; the other nine archs of the reference
-registry are queued in ROADMAP.md.
+``yi-9b`` (slice 1) and ``mamba2-2.7b`` (slice 2) run in the port; the
+other eight archs of the reference registry are queued in ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -13,6 +13,7 @@ from repro_torch.models.config import ModelConfig
 
 ARCH_MODULES = {
     "yi-9b": "yi_9b",
+    "mamba2-2.7b": "mamba2_2_7b",
 }
 
 ARCHS = tuple(ARCH_MODULES)

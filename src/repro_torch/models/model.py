@@ -1,4 +1,4 @@
-"""Decoder model of the port: the attention-cycle parts of the reference.
+"""Decoder model of the port: the attention and SSM cycles of the reference.
 
 Layers are grouped into a repeating *cycle*; stacked cycle parameters carry
 a leading layer dim, and the reference's ``lax.scan`` over them becomes a
@@ -14,6 +14,11 @@ kernel (with ``lengths = min(pos + 1, cache size)``); on the CPU both take
 the plain versions in ``layers``.  The cache is written in ring order
 (slot = position % cache size), which matches the reference whenever the
 prompt fits the cache.
+
+SSM blocks (``models/ssm.py``): on the card the SSD chunk scan of prefill /
+train goes through the CUDA SSD kernel, on the CPU through the chunked
+plain path; the single-token decode step is plain PyTorch on both.  Their
+cache is the conv tail and the fp32 state, written in place.
 """
 
 from __future__ import annotations
@@ -26,6 +31,7 @@ from repro_torch.device import DTYPES, resolve_device
 from repro_torch.kernels.decode_attention.ops import decode_attention
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.models import layers as L
+from repro_torch.models import ssm as S
 from repro_torch.models.config import LayerSpec, ModelConfig
 from repro_torch.models.param import ParamSpec, stack_cycle, tree_map
 
@@ -40,8 +46,6 @@ def _check_ported(cfg: ModelConfig) -> None:
     if cfg.qk_norm:
         missing.append(("qk_norm", "A11"))
     for spec in cfg.cycle:
-        if spec.kind != "attn":
-            missing.append(("the SSM block", "A13"))
         if spec.moe:
             missing.append(("the MoE MLP", "A12"))
         if spec.cross_attn:
@@ -81,7 +85,10 @@ def _mlp_part_template(cfg: ModelConfig, spec: LayerSpec) -> dict:
 
 
 def _block_template(cfg: ModelConfig, spec: LayerSpec) -> dict:
-    t = {"attn": _attn_template(cfg)}
+    if spec.kind == "attn":
+        t = {"attn": _attn_template(cfg)}
+    else:
+        t = {"ssm": {"ln": L.norm_template(cfg), **S.ssm_template(cfg)}}
     if spec.mlp:
         t["mlp"] = _mlp_part_template(cfg, spec)
     return t
@@ -120,6 +127,9 @@ class Model:
         cfg = self.cfg
         per_cycle = {}
         for i, spec in enumerate(cfg.cycle):
+            if spec.kind != "attn":
+                per_cycle[f"s{i}"] = S.ssm_cache_template(cfg, batch)
+                continue
             sc = min(spec.window, cache_len) if spec.window else cache_len
             kvshape = (batch, sc, cfg.n_kv_heads, cfg.head_dim)
             kvaxes = ("batch", "kvseq", "kv_heads", "head_dim")
@@ -212,10 +222,29 @@ class Model:
             y = L.apply_norm(y, p["post_ln"], cfg)
         return x + y
 
+    def _ssm_part(self, x, p, *, mode, cache):
+        """SSD mixer; prefill and decode write the conv tail and the state
+        into the cache views in place."""
+        cfg = self.cfg
+        h = L.apply_norm(x, p["ln"], cfg)
+        if mode == "train":
+            return x + S.ssd_forward(h, p, cfg)
+        if mode == "prefill":
+            y, (conv, state) = S.ssd_forward(h, p, cfg, return_state=True)
+        else:
+            y, (conv, state) = S.ssd_decode(h, p, cfg, cache["conv"],
+                                            cache["state"])
+        cache["conv"].copy_(conv)
+        cache["state"].copy_(state)
+        return x + y
+
     def apply_block(self, x, p, spec: LayerSpec, *, mode, cache=None,
                     pos=None):
-        x = self._attn_part(x, p["attn"], spec, mode=mode, cache=cache,
-                            pos=pos)
+        if spec.kind == "attn":
+            x = self._attn_part(x, p["attn"], spec, mode=mode, cache=cache,
+                                pos=pos)
+        else:
+            x = self._ssm_part(x, p["ssm"], mode=mode, cache=cache)
         if spec.mlp:
             x = self._mlp_part(x, p["mlp"], spec)
         return x

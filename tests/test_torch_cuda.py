@@ -6,7 +6,8 @@ imports no JAX, so it runs on a machine that has only the port:
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 Shapes are the Pallas sweep of ``tests/test_kernels.py`` plus ragged
-lengths and empty sequences; tolerances fp32 3e-5, bf16 2e-2.
+lengths and empty sequences; tolerances fp32 3e-5, bf16 2e-2 (SSD: fp32
+5e-4, as the reference's SSD test; bf16 x/B/C 2e-2).
 """
 
 import pytest
@@ -20,6 +21,8 @@ from repro_torch.kernels.decode_attention.ref import \
     decode_attention_ref  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as flash_ops  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import attention_ref  # noqa: E402
+from repro_torch.kernels.ssd import ops as ssd_ops  # noqa: E402
+from repro_torch.kernels.ssd.ref import ssd_ref  # noqa: E402
 
 torch.set_num_threads(2)
 
@@ -94,3 +97,62 @@ def test_decode_kernel_vs_plain_on_card(cuda, b, S, h, kv, dh, window, dtype):
     ref = decode_attention_ref(q, k, v, lens, window=window)
     torch.testing.assert_close(out.float(), ref.float(), atol=TOL[dtype],
                                rtol=TOL[dtype])
+
+
+SSD_TOL = {"float32": 5e-4, "bfloat16": 2e-2}
+SSD_SHAPES = [                    # (b, s, h, p, g, n, chunk)
+    (2, 128, 4, 16, 1, 32, 32),
+    (1, 256, 8, 32, 2, 16, 64),
+    (1, 128, 4, 1, 1, 16, 16),    # head_dim 1 (jamba / mamba-1 mode)
+    (2, 192, 6, 8, 3, 8, 64),     # uneven groups
+    (1, 300, 4, 64, 1, 128, 100),  # chunk not a multiple of the tile
+    (2, 512, 4, 64, 1, 128, 256),  # mamba2's head_dim, d_state and chunk
+]
+
+
+def _ssd_inputs(cuda, b, s, h, p, g, n, dtype, seed=15):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((b, s, h, p), np.float32)
+    dt = np.log1p(np.exp(rng.standard_normal((b, s, h)))).astype(np.float32)
+    A = -np.exp(rng.standard_normal(h) * 0.5).astype(np.float32)
+    B, C = (rng.standard_normal((b, s, g, n)).astype(np.float32)
+            for _ in "BC")
+    low = getattr(torch, dtype)
+    return (torch.from_numpy(x).to(cuda, low), torch.from_numpy(dt).to(cuda),
+            torch.from_numpy(A).to(cuda), torch.from_numpy(B).to(cuda, low),
+            torch.from_numpy(C).to(cuda, low))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("b,s,h,p,g,n,chunk", SSD_SHAPES)
+def test_ssd_kernel_vs_plain_on_card(cuda, b, s, h, p, g, n, chunk, dtype):
+    x, dt, A, B, C = _ssd_inputs(cuda, b, s, h, p, g, n, dtype)
+    before = ssd_ops.ssd_chunk_scan.launches
+    y, state = ssd_ops.ssd_chunk_scan(x, dt, A, B, C, chunk=chunk)
+    torch.cuda.synchronize()
+    assert ssd_ops.ssd_chunk_scan.launches == before + 1
+    assert y.dtype == x.dtype and state.dtype == torch.float32
+    yr, sr = ssd_ref(x, dt, A, B, C)
+    tol = SSD_TOL[dtype]
+    torch.testing.assert_close(y.float(), yr, atol=tol, rtol=tol)
+    torch.testing.assert_close(state, sr, atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+def test_ssd_kernel_reads_strided_slices(cuda):
+    """x, B and C as slices of one conv output, as the model passes them."""
+    b, s, h, p, g, n = 2, 64, 4, 16, 1, 32
+    rng = np.random.default_rng(16)
+    conv = torch.from_numpy(rng.standard_normal(
+        (b, s, h * p + 2 * g * n), np.float32)).to(cuda, torch.bfloat16)
+    x = conv[..., :h * p].view(b, s, h, p)
+    B = conv[..., h * p:h * p + g * n].view(b, s, g, n)
+    C = conv[..., h * p + g * n:].view(b, s, g, n)
+    dt = torch.rand((b, s, h), device=cuda)
+    A = -torch.rand((h,), device=cuda) - 0.5
+    y, state = ssd_ops.ssd_chunk_scan(x, dt, A, B, C, chunk=32)
+    yr, sr = ssd_ops.ssd_chunk_scan(x.contiguous(), dt, A, B.contiguous(),
+                                    C.contiguous(), chunk=32)
+    torch.testing.assert_close(y, yr, atol=0, rtol=0)
+    torch.testing.assert_close(state, sr, atol=0, rtol=0)

@@ -1,5 +1,6 @@
 """The port imports without JAX and pulls in nothing of the reference."""
 
+import ast
 import os
 import subprocess
 import sys
@@ -35,3 +36,18 @@ def test_port_imports_without_jax_or_reference():
     assert r.returncode == 0, r.stdout + r.stderr
     n_modules = int(r.stdout.split()[0])
     assert n_modules >= 15, r.stdout
+
+
+def test_chip_smoke_imports_neither_jax_nor_reference():
+    path = os.path.join(os.path.dirname(__file__), "..", "chip_smoke.py")
+    with open(path) as f:
+        tree = ast.parse(f.read())
+    names = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names.append(node.module or "")
+    roots = {n.split(".")[0] for n in names}
+    assert "repro_torch" in roots
+    assert not roots & {"jax", "jaxlib", "repro"}, sorted(roots)
