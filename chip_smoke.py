@@ -11,12 +11,13 @@ Phases (each raises on failure, so any failed check exits non-zero):
                 Pallas sweep shapes and at the serving shape; times of the
                 kernel, the plain version and, where one exists, one PyTorch
                 library call (a yardstick the port never calls), beside the
-                bound
+                bound; decode also at batches 1 and 2 of its serving caches
   4. model    - yi-9b and mamba2-2.7b at full width, 2 layers, fp32:
                 prefill + 2 decode steps through the kernels, against the
                 plain CPU path on the same weights
   5. serve    - yi-9b, then mamba2-2.7b, at full width and depth (bf16,
-                random weights from a seeded generator on the card): 4
+                random weights from a seeded generator on the card): the
+                median of three prefills and each kernel's share of it, 4
                 requests through ServeEngine, counting the kernel launches
                 of prefill, of the whole generate run and of a teacher-forced
                 forward pass
@@ -61,6 +62,12 @@ FLASH_SWEEP = [
     (1, 256, 256, 4, 4, 128, True, 128, 50.0),
     (2, 128, 384, 8, 2, 64, False, 0, 0.0),
     (1, 384, 384, 2, 1, 128, True, 0, 0.0),
+    # the bf16 kernel's edges: sq = sk = 1; causal with sq < sk and ragged
+    # tiles over batches; a window and softcap at dh 64 across tile edges
+    (1, 1, 1, 2, 1, 64, True, 0, 0.0),
+    (2, 100, 300, 8, 2, 128, True, 0, 0.0),
+    (3, 131, 131, 4, 4, 128, True, 0, 0.0),
+    (1, 300, 300, 4, 2, 64, True, 150, 30.0),
 ]
 FLASH_RAGGED = (1, 300, 300, 4, 1, 128, True, 0, 0.0)
 # (b, S, h, kv, dh, window)
@@ -69,6 +76,8 @@ DECODE_SWEEP = [
     (2, 512, 4, 4, 128, 128),
     (1, 300, 8, 2, 64, 0),
     (3, 256, 16, 2, 128, 64),
+    (2, 300, 32, 2, 128, 0),      # 16 query heads per kv head
+    (2, 4100, 32, 4, 128, 0),     # S not a multiple of the tile
 ]
 # (b, s, h, p, g, n, chunk): the Pallas sweep of tests/test_kernels.py
 SSD_SWEEP = [
@@ -228,6 +237,7 @@ def phase_flash(gen, main_shape) -> dict:
                     "library_ms": lib_ms, "bound_us": bms * 1e3,
                     "flops": flops, "bytes": nbytes,
                     "achieved_tflops": flops / ms / 1e9,
+                    "library_tflops": flops / lib_ms / 1e9,
                     "check_launches": flash_ops.flash_attention.launches}))
     return rec
 
@@ -281,11 +291,36 @@ def phase_decode(gen, rng, main_shape, main_lengths) -> dict:
                  v.transpose(1, 2).contiguous(),
                  (pos[None, :] < ln[:, None])[:, None, None, :])
                 for q, k, v, ln in sets]
-    lib_ms = time_ms(lambda q, k, v, m: F.scaled_dot_product_attention(
-        q, k, v, attn_mask=m, enable_gqa=True), lib_sets, 96)
-    rows = int(np.sum(main_lengths))
-    flops = 4.0 * h * dh * rows
-    nbytes = 2 * rows * kv * dh * 2 + 2 * q.numel() * 2 + 4 * b
+    sdpa = lambda q, k, v, m: F.scaled_dot_product_attention(  # noqa: E731
+        q, k, v, attn_mask=m, enable_gqa=True)
+    lib_ms = time_ms(sdpa, lib_sets, 96)
+
+    def work(nb):
+        """(FLOPs, bytes) of the first ``nb`` sequences."""
+        rows = int(np.sum(main_lengths[:nb]))
+        return 4.0 * h * dh * rows, \
+            2 * rows * kv * dh * 2 + 2 * nb * h * dh * 2 + 4 * nb
+
+    # the first one and two sequences of the same caches: smaller batches
+    # take more, shorter splits (ops.split_plan)
+    batches = {}
+    for nb in (1, 2):
+        sub = [tuple(t[:nb] for t in args) for args in sets]
+        out = decode_ops.decode_attention(*sub[0])
+        torch.cuda.synchronize()
+        ref = decode_attention_ref(*sub[0])
+        if not within(out, ref, TOL[dtype]):
+            raise AssertionError(f"decode_attention batch {nb}: err "
+                                 f"{max_err(out, ref)}")
+        nb_flops, nb_bytes = work(nb)
+        nb_ms = time_ms(decode_ops.decode_attention, sub, 96)
+        nb_lib = time_ms(sdpa, [tuple(t[:nb] for t in args)
+                                for args in lib_sets], 96)
+        batches[nb] = dict(ms=nb_ms, library_ms=nb_lib,
+                           bound_us=bound_ms(nb_flops, nb_bytes, dtype)[0]
+                           * 1e3, achieved_GBps=nb_bytes / nb_ms / 1e6,
+                           library_GBps=nb_bytes / nb_lib / 1e6)
+    flops, nbytes = work(b)
     bms, by = bound_ms(flops, nbytes, dtype)
     rec = dict(name="decode_attention", route="cuda",
                source="src/repro_torch/kernels/decode_attention/csrc/decode_attention.cu",
@@ -297,6 +332,8 @@ def phase_decode(gen, rng, main_shape, main_lengths) -> dict:
                     "library_ms": lib_ms, "bound_us": bms * 1e3,
                     "flops": flops, "bytes": nbytes,
                     "achieved_GBps": nbytes / ms / 1e6,
+                    "library_GBps": nbytes / lib_ms / 1e6,
+                    "smaller_batches": batches,
                     "check_launches": decode_ops.decode_attention.launches}))
     return rec
 
@@ -453,11 +490,13 @@ def decode_vs_forward_fp32(cfg, params, toks, steps: int = 8) -> dict:
     return out
 
 
-def phase_serve(arch: str, seed: int, *, min_agreement=0.5,
+def phase_serve(arch: str, seed: int, kernel_ms: dict, *, min_agreement=0.5,
                 fp32_check: bool = False) -> dict:
     """Serve 4 requests at full width and depth in bf16.  Greedy decode must
     agree with teacher forcing on ``min_agreement`` of the tokens (None:
-    reported only); ``fp32_check`` adds ``decode_vs_forward_fp32``."""
+    reported only); ``fp32_check`` adds ``decode_vs_forward_fp32``.
+    ``kernel_ms`` (phase 3's times by kernel) gives each kernel's share of
+    prefill: launches x time / prefill seconds."""
     cfg = get_config(arch)
     model = Model(cfg)
     t0 = time.perf_counter()
@@ -474,19 +513,24 @@ def phase_serve(arch: str, seed: int, *, min_agreement=0.5,
     n_attn, n_ssm = _layer_kinds(cfg)
     decode_steps = SERVE_NEW - 1
 
-    # warm-up prefill of the same batch: its time, launches and greedy token
+    # prefills of the same batch: the median time of three, the launches of
+    # one and the greedy token
     toks = np.full((SERVE_B, max(SERVE_PROMPTS)), cfg.vocab_size - 1, np.int64)
     for i, p in enumerate(prompts):
         toks[i, -len(p):] = p
     toks = torch.from_numpy(toks).cuda()
-    zero_counts()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    first_logits, warm_cache = model.prefill(params, toks,
-                                             cache_len=SERVE_CACHE)
-    torch.cuda.synchronize()
-    prefill_s = time.perf_counter() - t0
-    prefill_launches = counts()
+    times = []
+    for _ in range(3):
+        first_logits = warm_cache = None
+        zero_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        first_logits, warm_cache = model.prefill(params, toks,
+                                                 cache_len=SERVE_CACHE)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        prefill_launches = counts()
+    prefill_s = float(np.median(times))
     first = torch.argmax(first_logits, -1).tolist()
 
     torch.cuda.reset_peak_memory_stats()
@@ -499,12 +543,16 @@ def phase_serve(arch: str, seed: int, *, min_agreement=0.5,
     launches = counts()
 
     decode_s = total_s - prefill_s
-    stats = dict(prefill_s=prefill_s, generate_s=total_s,
+    shares = {name: prefill_launches[name] * kernel_ms[name] / 1e3 / prefill_s
+              for name in kernel_ms if prefill_launches.get(name)}
+    stats = dict(prefill_s=prefill_s, prefill_runs_s=times,
+                 generate_s=total_s,
                  decode_tok_per_s=SERVE_B * decode_steps / decode_s,
                  decode_step_ms=decode_s / decode_steps * 1e3,
                  prefill_tok_per_s=SERVE_B * max(SERVE_PROMPTS) / prefill_s,
                  peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
-                 prefill_launches=prefill_launches, launches=launches)
+                 prefill_launches=prefill_launches,
+                 prefill_kernel_share=shares, launches=launches)
     log(f"  serve {arch}: " + json.dumps(stats))
 
     if [len(o) for o in outs] != [SERVE_NEW] * SERVE_B:
@@ -608,12 +656,13 @@ def main() -> int:
     # each model's path is read on its own: its serve phase sets the
     # counts to 0 before it runs and reads them after
     log("== phase 5: serve, yi-9b full width and depth, bf16")
-    stats = {"yi-9b": phase_serve("yi-9b", args.seed)}
+    kernel_ms = {rec["name"]: rec["ms"] for rec in kernels}
+    stats = {"yi-9b": phase_serve("yi-9b", args.seed, kernel_ms)}
     torch.cuda.empty_cache()
     log("== phase 5: serve, mamba2-2.7b full width and depth, bf16")
     # bf16 decode vs teacher forcing is reported; the paths are held to
     # each other in fp32 (decode_vs_forward_fp32)
-    stats["mamba2-2.7b"] = phase_serve("mamba2-2.7b", args.seed,
+    stats["mamba2-2.7b"] = phase_serve("mamba2-2.7b", args.seed, kernel_ms,
                                        min_agreement=None, fp32_check=True)
     path_of = {"flash_attention": "yi-9b", "decode_attention": "yi-9b",
                "ssd_chunk_scan": "mamba2-2.7b"}

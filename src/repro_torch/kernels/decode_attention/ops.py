@@ -17,7 +17,7 @@ from repro_torch.kernels.decode_attention.ref import decode_attention_ref
 
 HEAD_DIMS = (64, 128)
 MAX_GROUP = 16          # query heads per kv head the kernel serves
-CHUNK = 64              # cache rows per split, at least
+TILE = 64               # cache rows per stage of the kernel's ring
 MAX_SPLITS = 1024       # splits the merge kernel takes
 _ENTRY = {torch.float32: "decode_attention_f32",
           torch.bfloat16: "decode_attention_bf16"}
@@ -32,6 +32,34 @@ def _entry(dtype):
     fn.argtypes = _ARGTYPES
     fn.restype = ctypes.c_int
     return fn
+
+
+def split_plan(S: int, num_sms: int, pairs: int) -> tuple:
+    """(rows per split, number of splits) for a cache of ``S`` rows on a
+    card of ``num_sms`` SMs, for ``pairs`` = b x kv (batch, kv head) pairs.
+
+    Depends on the shapes and the SM count alone, never on ``lengths``
+    (which stay on the device), so a CUDA graph replays it for any lengths.
+    About one wave of blocks in all: ``num_sms // pairs`` splits of whole
+    tiles, at least one, never more than ``MAX_SPLITS`` (which the merge
+    takes).  At the serving shape (S 4096, 4 x 4 pairs, 132 SMs) that is 8
+    splits of 512 rows, of which the ~5 that hold rows of ~2060-row
+    prefixes run ~80 blocks: on the H100 that beat splits of 128, 256 and
+    1024 rows, since each block's fixed costs and the merge's partials,
+    not the bytes in flight, set the time there.  A smaller batch gets
+    more, shorter splits, so the blocks that hold rows stay near that
+    count."""
+    if S < 1 or num_sms < 1 or pairs < 1:
+        raise ValueError(f"need S, num_sms, pairs >= 1; got {S}, {num_sms}, "
+                         f"{pairs}")
+    rows = max(-(-S // max(1, num_sms // pairs)), -(-S // MAX_SPLITS))
+    chunk = TILE * -(-rows // TILE)
+    return chunk, -(-S // chunk)
+
+
+@functools.cache
+def _num_sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _check(q, k_cache, v_cache, lengths):
@@ -76,8 +104,7 @@ def decode_attention(q, k_cache, v_cache, lengths, *, window: int = 0,
     _check(q, k_cache, v_cache, lengths)
     b, h, dh = q.shape
     S, kv = k_cache.shape[1], k_cache.shape[2]
-    chunk = max(CHUNK, -(-S // MAX_SPLITS))
-    nsplit = -(-S // chunk)
+    chunk, nsplit = split_plan(S, _num_sms(q.device.index), b * kv)
     out = torch.empty_like(q)
     part_m = torch.empty((b, h, nsplit), dtype=torch.float32, device=q.device)
     part_l = torch.empty_like(part_m)

@@ -38,6 +38,21 @@ FLASH_SHAPES = [
     (1, 300, 300, 4, 1, 128, True, 0, 0.0),
     (1, 128, 300, 4, 2, 64, False, 0, 0.0),
     (1, 300, 300, 2, 2, 64, True, 100, 20.0),
+    # where the bf16 kernel's TMA ring and its 128-row q / 96-key tiles
+    # change behaviour
+    (1, 64, 1, 4, 2, 128, False, 0, 0.0),        # sk 1
+    (1, 64, 63, 4, 2, 128, False, 0, 0.0),       # sk 63
+    (1, 96, 65, 4, 1, 128, False, 0, 0.0),       # sk 65
+    (1, 128, 127, 4, 2, 64, False, 0, 0.0),      # sk 127
+    (1, 128, 129, 4, 2, 128, False, 0, 0.0),     # sk 129
+    (1, 128, 150, 4, 2, 128, False, 0, 0.0),     # 2 k tiles: fewer than the ring's 3 stages
+    (2, 1, 300, 8, 2, 128, False, 0, 0.0),       # sq 1
+    (1, 1, 1, 2, 1, 64, True, 0, 0.0),           # sq = sk = 1
+    (2, 100, 300, 8, 2, 128, True, 0, 0.0),      # causal with sq < sk
+    (1, 300, 300, 4, 2, 128, True, 100, 0.0),    # window across 128-row tiles
+    (1, 300, 300, 4, 2, 64, True, 150, 30.0),    # dh 64, window and softcap
+    (3, 200, 131, 4, 2, 128, False, 0, 0.0),     # b > 1, ragged sk
+    (3, 131, 131, 4, 4, 128, True, 0, 0.0),      # b > 1, ragged, causal
 ]
 DECODE_SHAPES = [
     (2, 512, 4, 2, 64, 0),
@@ -45,6 +60,8 @@ DECODE_SHAPES = [
     (1, 300, 8, 2, 64, 0),        # ragged cache length
     (3, 256, 16, 2, 128, 64),
     (2, 300, 24, 2, 128, 0),      # 12 query heads per kv head
+    (2, 300, 32, 2, 128, 0),      # 16 query heads per kv head
+    (2, 4100, 32, 4, 128, 0),     # S not a multiple of the tile, many splits
 ]
 
 
@@ -75,6 +92,7 @@ def test_flash_kernel_vs_plain_on_card(cuda, b, sq, sk, h, kv, dh, causal,
     out = flash_ops.flash_attention(q, k, v, **kw)
     torch.cuda.synchronize()
     assert flash_ops.flash_attention.launches == before + 1
+    assert torch.isfinite(out).all()
     ref = attention_ref(q, k, v, **kw)
     torch.testing.assert_close(out.float(), ref.float(), atol=TOL[dtype],
                                rtol=TOL[dtype])
@@ -156,3 +174,57 @@ def test_ssd_kernel_reads_strided_slices(cuda):
                                     C.contiguous(), chunk=32)
     torch.testing.assert_close(y, yr, atol=0, rtol=0)
     torch.testing.assert_close(state, sr, atol=0, rtol=0)
+
+
+def _decode_lengths_case(cuda, dtype, S, lengths, window=0, h=8, kv=2,
+                         dh=128):
+    rng = np.random.default_rng(18)
+    b = len(lengths)
+    q = rng.standard_normal((b, h, dh), np.float32)
+    k, v = (rng.standard_normal((b, S, kv, dh), np.float32) for _ in "kv")
+    q, k, v = (torch.from_numpy(a).to(cuda, getattr(torch, dtype))
+               for a in (q, k, v))
+    return q, k, v, torch.tensor(lengths, dtype=torch.int32, device=cuda)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("window", (0, 100))
+def test_decode_kernel_edge_lengths_on_card(cuda, dtype, window):
+    """Lengths 0, 1, one split - 1, one split, one split + 1 and S."""
+    S, b, kv = 1000, 6, 2
+    chunk, _ = decode_ops.split_plan(
+        S, torch.cuda.get_device_properties(cuda).multi_processor_count,
+        b * kv)
+    lengths = [0, 1, chunk - 1, chunk, chunk + 1, S]
+    q, k, v, lens = _decode_lengths_case(cuda, dtype, S, lengths, window,
+                                         kv=kv)
+    out = decode_ops.decode_attention(q, k, v, lens, window=window)
+    torch.cuda.synchronize()
+    assert torch.equal(out[0], torch.zeros_like(out[0]))
+    ref = decode_attention_ref(q, k, v, lens, window=window)
+    torch.testing.assert_close(out.float(), ref.float(), atol=TOL[dtype],
+                               rtol=TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_decode_kernel_in_cuda_graph_reads_lengths_on_device(cuda, dtype):
+    """One capture, two replays with lengths changed in place between
+    them: the wrapper must not read lengths on the host."""
+    S = 700
+    q, k, v, lens = _decode_lengths_case(cuda, dtype, S, [650, 3, 129, 0])
+    before = decode_ops.decode_attention.launches
+    decode_ops.decode_attention(q, k, v, lens)      # warm-up, outside
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = decode_ops.decode_attention(q, k, v, lens)
+    assert decode_ops.decode_attention.launches == before + 2
+    for lengths in ([650, 3, 129, 0], [1, 700, 0, 64]):
+        lens.copy_(torch.tensor(lengths, dtype=torch.int32))
+        graph.replay()
+        torch.cuda.synchronize()
+        ref = decode_attention_ref(q, k, v, lens)
+        torch.testing.assert_close(out.float(), ref.float(),
+                                   atol=TOL[dtype], rtol=TOL[dtype])

@@ -143,3 +143,39 @@ def test_cpu_wrappers_launch_no_kernel():
     before = flash_ops.flash_attention.launches
     flash_ops.flash_attention(q, k, v)
     assert flash_ops.flash_attention.launches == before
+
+
+@pytest.mark.parametrize("pairs", (1, 16, 512))
+@pytest.mark.parametrize("num_sms", (1, 8, 132))
+@pytest.mark.parametrize("S", (1, 63, 64, 300, 4096))
+def test_decode_split_plan_covers_every_row_once(S, num_sms, pairs):
+    """The decode kernel's splits: every cache row of [0, S) in exactly one
+    split, whole tiles per split, at most MAX_SPLITS splits, no more
+    blocks than one wave once a split holds more than a tile, and the plan
+    a function of the shapes and the SM count alone (the host never reads
+    lengths)."""
+    chunk, nsplit = decode_ops.split_plan(S, num_sms, pairs)
+    assert chunk % decode_ops.TILE == 0 and chunk > 0
+    assert 1 <= nsplit <= decode_ops.MAX_SPLITS
+    if chunk > decode_ops.TILE:
+        assert nsplit * pairs <= max(num_sms, pairs)
+    owner = np.full(S, -1)
+    for split in range(nsplit):
+        rows = np.arange(split * chunk, min((split + 1) * chunk, S))
+        assert (owner[rows] == -1).all()
+        owner[rows] = split
+    assert (owner >= 0).all()
+    assert decode_ops.split_plan(S, num_sms, pairs) == (chunk, nsplit)
+
+
+def test_decode_split_plan_caps_splits_and_rejects_bad_sizes():
+    chunk, nsplit = decode_ops.split_plan(10**6, 100_000, 1)
+    assert nsplit <= decode_ops.MAX_SPLITS and chunk * nsplit >= 10**6
+    # yi-9b's serving cache on 132 SMs: 8 splits of 512 rows at batch 4
+    # (4 x 4 pairs), more and shorter splits at batches 1 and 2
+    assert decode_ops.split_plan(4096, 132, 16) == (512, 8)
+    assert decode_ops.split_plan(4096, 132, 8) == (256, 16)
+    assert decode_ops.split_plan(4096, 132, 4) == (128, 32)
+    for bad in ((0, 132, 16), (64, 0, 16), (64, 132, 0)):
+        with pytest.raises(ValueError):
+            decode_ops.split_plan(*bad)
