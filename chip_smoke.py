@@ -11,7 +11,9 @@ Phases (each raises on failure, so any failed check exits non-zero):
                 Pallas sweep shapes and at the serving shape; times of the
                 kernel, the plain version and, where one exists, one PyTorch
                 library call (a yardstick the port never calls), beside the
-                bound; decode also at batches 1 and 2 of its serving caches
+                bound; decode also at batches 1 and 2 of its serving caches;
+                the bf16 SSD op (three kernels) as a whole and each of its
+                kernels alone
   4. model    - yi-9b and mamba2-2.7b at full width, 2 layers, fp32:
                 prefill + 2 decode steps through the kernels, against the
                 plain CPU path on the same weights
@@ -20,7 +22,8 @@ Phases (each raises on failure, so any failed check exits non-zero):
                 median of three prefills and each kernel's share of it, 4
                 requests through ServeEngine, counting the kernel launches
                 of prefill, of the whole generate run and of a teacher-forced
-                forward pass
+                forward pass; for mamba2-2.7b one prefill under
+                torch.profiler (the ten device ops that take the most time)
 The last two lines are the kernels JSON line and the result line.
 """
 
@@ -85,6 +88,14 @@ SSD_SWEEP = [
     (1, 256, 8, 32, 2, 16, 64),
     (1, 128, 4, 1, 1, 16, 16),
     (2, 192, 6, 8, 3, 8, 64),
+    # the bf16 kernels' edges: a chunk that is not a multiple of their
+    # 64-row tile; two groups of 20 heads (head tiles of 16 and of 4)
+    (1, 300, 4, 64, 1, 128, 100),
+    (1, 256, 40, 32, 2, 64, 128),
+    # heads' states packed in the bf16 scratch: 24-float states; jamba's
+    # head_dim, d_state and chunk over 40 heads
+    (1, 128, 5, 3, 1, 8, 32),
+    (2, 256, 40, 1, 1, 16, 16),
 ]
 SSD_TOL = {torch.float32: 5e-4, torch.bfloat16: 2e-2}
 # the serving shape of phase 5
@@ -166,14 +177,28 @@ def phase_device() -> None:
     torch.backends.cudnn.allow_tf32 = False
 
 
+def kernel_resources(name: str, text: str) -> list:
+    """One line per kernel of source ``name``'s ptxas log: its (mangled)
+    name, registers, barriers, stack and spills."""
+    out, kernel, spills = [], "?", ""
+    for line in text.splitlines():
+        if "Compiling entry function" in line:
+            kernel = line.split("'")[1] if "'" in line else line
+        elif "spill" in line:
+            spills = line.strip()
+        elif "Used" in line:
+            out.append(f"[{name}] {kernel}: "
+                       f"{line.split(':', 1)[-1].strip()}; {spills}")
+    return out
+
+
 def phase_build() -> None:
     t0 = time.perf_counter()
     logs = _build.build_all()
     secs = time.perf_counter() - t0
     for name, text in logs.items():
-        for line in text.splitlines():
-            if "Used" in line or "spill" in line:
-                log(f"  [{name}] {line.strip()}")
+        for line in kernel_resources(name, text):
+            log("  " + line)
     log(f"build: {len(logs)} sources in {secs:.1f} s")
 
 
@@ -366,6 +391,23 @@ def _ssd_check(gen, shape, dtype, label="") -> float:
     return err
 
 
+def ssd_serving_shape() -> tuple:
+    """(b, s, h, p, g, n, chunk) of mamba2-2.7b's prefill in phase 5."""
+    c = get_config("mamba2-2.7b").ssm
+    return (SERVE_B, max(SERVE_PROMPTS), c.n_heads, c.head_dim, c.n_groups,
+            c.d_state, c.chunk)
+
+
+def ssd_kernel_times(args, q: int) -> dict:
+    """Device ms of each of the bf16 SSD op's kernels alone, and of all
+    three, on one set of buffers (the op allocates its own in every call)."""
+    buffers = ssd_ops.bf16_buffers(args[0], args[3], q)
+    stages = {**ssd_ops.STAGES, "all": ssd_ops.ALL_STAGES}
+    return {name: time_ms(lambda *a, bit=bit: ssd_ops.launch_bf16(
+                *a, q, None, buffers, bit), [args], 10)
+            for name, bit in stages.items()}
+
+
 def phase_ssd(gen, main_shape) -> dict:
     for dtype in (torch.float32, torch.bfloat16):
         for shape in SSD_SWEEP:
@@ -375,11 +417,18 @@ def phase_ssd(gen, main_shape) -> dict:
     _ssd_check(gen, main_shape, torch.float32, " (serving shape)")
     err = _ssd_check(gen, main_shape, dtype, " (serving shape)")
     args = _ssd_inputs(gen, main_shape, dtype)       # 100 MB: L2-cold
+    # the whole op, all its launches, in one CUDA graph
     ms = time_ms(lambda *a: ssd_ops.ssd_chunk_scan(*a, chunk=chunk), [args],
                  10)
     plain_ms = time_ms(ssd_ref, [args], 1)
     q = min(chunk, s)
     nc = s // q
+    stages_ms = ssd_kernel_times(args, q)
+    plan = ssd_ops.bf16_plan(b, s, h, p, g, n, q)
+    layout = dict(grids=plan.grids, smem=plan.smem,
+                  scratch_bytes=plan.scratch_bytes)
+    log(f"  ssd bf16 serving shape, each kernel alone and all three on one "
+        f"set of buffers (ms): " + json.dumps(stages_ms))
     flops = 2.0 * q * p * (q + 2 * n) * b * h * nc + 2.0 * q * q * n * b * g * nc
     x, dt, A, B, C = args
     nbytes = 2 * x.numel() * x.element_size() + sum(
@@ -395,7 +444,8 @@ def phase_ssd(gen, main_shape) -> dict:
                     "library_ms": None, "bound_us": bms * 1e3,
                     "flops": flops, "bytes": nbytes,
                     "achieved_tflops": flops / ms / 1e9,
-                    "tile": ssd_ops.plan(q, n, p),
+                    "achieved_GBps": nbytes / ms / 1e6,
+                    "kernels_ms": stages_ms, **layout,
                     "check_launches": ssd_ops.ssd_chunk_scan.launches}))
     return rec
 
@@ -490,13 +540,50 @@ def decode_vs_forward_fp32(cfg, params, toks, steps: int = 8) -> dict:
     return out
 
 
+def profile_prefill(model, params, toks) -> dict:
+    """One prefill under ``torch.profiler``: the device's busy time against
+    the wall time, and the ten device ops (kernels and copies) that take the
+    most of it.  Raises if the profiler records no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        model.prefill(params, toks, cache_len=SERVE_CACHE)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+
+    def device_us(e):
+        return getattr(e, "self_device_time_total", None) \
+            or getattr(e, "self_cuda_time_total", 0.0)
+
+    cuda = torch.autograd.DeviceType.CUDA
+    events = [e for e in prof.key_averages()
+              if getattr(e, "device_type", None) == cuda and device_us(e) > 0]
+    busy_ms = sum(device_us(e) for e in events) / 1e3
+    if busy_ms == 0:
+        raise AssertionError("torch.profiler recorded no device time")
+    top = sorted(events, key=device_us, reverse=True)[:10]
+    out = dict(profile_wall_ms=wall_ms, device_busy_ms=busy_ms,
+               device_idle_share=1.0 - busy_ms / wall_ms,
+               top10=[dict(name=e.key[:100], calls=e.count,
+                           ms=device_us(e) / 1e3,
+                           share=device_us(e) / 1e3 / busy_ms)
+                      for e in top])
+    log("  profile of one prefill: " + json.dumps(out))
+    return out
+
+
 def phase_serve(arch: str, seed: int, kernel_ms: dict, *, min_agreement=0.5,
-                fp32_check: bool = False) -> dict:
+                fp32_check: bool = False, profile: bool = False) -> dict:
     """Serve 4 requests at full width and depth in bf16.  Greedy decode must
     agree with teacher forcing on ``min_agreement`` of the tokens (None:
     reported only); ``fp32_check`` adds ``decode_vs_forward_fp32``.
     ``kernel_ms`` (phase 3's times by kernel) gives each kernel's share of
-    prefill: launches x time / prefill seconds."""
+    prefill: launches x time / prefill seconds.  ``profile`` adds one
+    prefill under ``torch.profiler`` (``profile_prefill``), after the timed
+    runs."""
     cfg = get_config(arch)
     model = Model(cfg)
     t0 = time.perf_counter()
@@ -612,6 +699,8 @@ def phase_serve(arch: str, seed: int, kernel_ms: dict, *, min_agreement=0.5,
                  decode_step_idle_share=1.0 - graph_ms / eager_ms)
     log(f"  serve: decode step eager {eager_ms:.2f} ms, device (CUDA graph) "
         f"{graph_ms:.2f} ms, idle share {1.0 - graph_ms / eager_ms:.3f}")
+    if profile:                       # after every timed run: the profiler
+        stats["prefill_profile"] = profile_prefill(model, params, toks)
     if fp32_check:
         del full, warm_cache, step_logits
         torch.cuda.empty_cache()
@@ -638,13 +727,9 @@ def main() -> int:
     decode_main = (SERVE_B, SERVE_CACHE, 32, 4, 128, 0)
     main_lengths = rng.integers(max(SERVE_PROMPTS) + 1,
                                 max(SERVE_PROMPTS) + SERVE_NEW, SERVE_B)
-    ssd_cfg = get_config("mamba2-2.7b").ssm
-    ssd_main = (SERVE_B, max(SERVE_PROMPTS), ssd_cfg.n_heads,
-                ssd_cfg.head_dim, ssd_cfg.n_groups, ssd_cfg.d_state,
-                ssd_cfg.chunk)
     kernels = [phase_flash(gen, flash_main),
                phase_decode(gen, rng, decode_main, main_lengths),
-               phase_ssd(gen, ssd_main)]
+               phase_ssd(gen, ssd_serving_shape())]
     torch.cuda.empty_cache()
 
     log("== phase 4: model, full width, 2 layers, fp32, card vs CPU")
@@ -663,7 +748,8 @@ def main() -> int:
     # bf16 decode vs teacher forcing is reported; the paths are held to
     # each other in fp32 (decode_vs_forward_fp32)
     stats["mamba2-2.7b"] = phase_serve("mamba2-2.7b", args.seed, kernel_ms,
-                                       min_agreement=None, fp32_check=True)
+                                       min_agreement=None, fp32_check=True,
+                                       profile=True)
     path_of = {"flash_attention": "yi-9b", "decode_attention": "yi-9b",
                "ssd_chunk_scan": "mamba2-2.7b"}
     for rec in kernels:

@@ -6,10 +6,13 @@ quadratic attention-like contraction, across chunks a linear recurrence
 over per-chunk states.
 
 Dispatch: ``ssd_scan`` pads the sequence to a multiple of Q and then, on
-the card, runs the chunk scan through the CUDA kernel
-(``kernels.ssd.ops.ssd_chunk_scan``); on the CPU it runs the chunked plain
-path (``_ssd_chunked``), a port of the reference's XLA path.  ``ssd_decode``
-is plain PyTorch on both devices.
+the card, runs the chunk scan through the CUDA kernels
+(``kernels.ssd.ops.ssd_chunk_scan``: for bf16 three launches per call,
+chunk states, a pass over the chunks and the chunk scan, on the tensor
+cores; for fp32 one CUDA-core kernel); on the CPU it runs the chunked plain
+path (``_ssd_chunked``), a port of the reference's XLA path.  Both start
+from ``ssm_state`` when one is given (the reference's ``ssd_forward``
+does), else from zeros.  ``ssd_decode`` is plain PyTorch on both devices.
 
 Two deliberate differences from the reference:
 * The kernel returns y in x's dtype, so in a bf16 model the card rounds y
@@ -23,8 +26,9 @@ Two deliberate differences from the reference:
 
 The CPU path keeps the reference's decay exp(cum_q - cum_k), a difference
 of two prefix sums, which in fp32 loses precision of the exponent as the
-chunk grows; the kernel builds each exponent from sums of one sign and
-stays closer to the sequential recurrence (``kernels/ssd/csrc/ssd.cu``).
+chunk grows; the kernels build their exponents from sums of one sign (the
+bf16 kernel, inside one 64-row tile, from a difference of two such sums)
+and stay closer to the sequential recurrence (``kernels/ssd/csrc/ssd.cu``).
 """
 
 from __future__ import annotations
@@ -154,7 +158,8 @@ def _ssd_chunked(xh, dt, A, B, C, Q: int, init=None):
 
 def ssd_scan(xh, dt, A, B, C, chunk: int, ssm_state=None):
     """Pad the sequence to a multiple of Q = min(chunk, s) and run the chunk
-    scan: the CUDA kernel on the card, ``_ssd_chunked`` on the CPU.
+    scan from ``ssm_state`` (or zeros): the CUDA kernels on the card,
+    ``_ssd_chunked`` on the CPU.
 
     Returns (y (b,s,h,p): xh's dtype on the card, fp32 on the CPU; final
     state (b,h,n,p) fp32).  Padded rows carry dt = 0, so they leave the
@@ -166,11 +171,8 @@ def ssd_scan(xh, dt, A, B, C, chunk: int, ssm_state=None):
         xh, B, C = (F.pad(t, (0, 0, 0, 0, 0, pad)) for t in (xh, B, C))
         dt = F.pad(dt, (0, 0, 0, pad))
     if xh.device.type == "cuda":
-        if ssm_state is not None:
-            raise NotImplementedError(
-                "the SSD kernel starts from a zero state; ssd_forward with "
-                "ssm_state is not supported on the card")
-        y, state = ssd_chunk_scan(xh, dt, A, B, C, chunk=Q)
+        init = None if ssm_state is None else ssm_state.float().contiguous()
+        y, state = ssd_chunk_scan(xh, dt, A, B, C, chunk=Q, init=init)
     else:
         y, state = _ssd_chunked(xh, dt, A, B, C, Q, ssm_state)
     return y[:, :seqlen], state

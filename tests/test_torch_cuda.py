@@ -125,6 +125,15 @@ SSD_SHAPES = [                    # (b, s, h, p, g, n, chunk)
     (2, 192, 6, 8, 3, 8, 64),     # uneven groups
     (1, 300, 4, 64, 1, 128, 100),  # chunk not a multiple of the tile
     (2, 512, 4, 64, 1, 128, 256),  # mamba2's head_dim, d_state and chunk
+    # the bf16 kernels' head tiles: 20 heads a group (a tile of 16 and one
+    # of 4), 8 a group in two groups
+    (1, 256, 40, 32, 2, 64, 128),
+    (1, 512, 16, 64, 2, 128, 256),
+    (4, 2048, 80, 64, 1, 128, 256),  # mamba2-2.7b's serving shape
+    # the bf16 scratch packs the heads' states: 24-float states (groups of
+    # 64 span heads); jamba's head_dim, d_state and chunk over 40 heads
+    (1, 128, 5, 3, 1, 8, 32),
+    (2, 256, 40, 1, 1, 16, 16),
 ]
 
 
@@ -158,9 +167,12 @@ def test_ssd_kernel_vs_plain_on_card(cuda, b, s, h, p, g, n, chunk, dtype):
 
 
 @pytest.mark.cuda
-def test_ssd_kernel_reads_strided_slices(cuda):
+@pytest.mark.parametrize("b,s,h,p,g,n,chunk", [
+    (2, 64, 4, 16, 1, 32, 32),
+    (1, 512, 8, 64, 1, 128, 256),    # mamba2's widths: 16-byte copies
+])
+def test_ssd_kernel_reads_strided_slices(cuda, b, s, h, p, g, n, chunk):
     """x, B and C as slices of one conv output, as the model passes them."""
-    b, s, h, p, g, n = 2, 64, 4, 16, 1, 32
     rng = np.random.default_rng(16)
     conv = torch.from_numpy(rng.standard_normal(
         (b, s, h * p + 2 * g * n), np.float32)).to(cuda, torch.bfloat16)
@@ -169,11 +181,79 @@ def test_ssd_kernel_reads_strided_slices(cuda):
     C = conv[..., h * p + g * n:].view(b, s, g, n)
     dt = torch.rand((b, s, h), device=cuda)
     A = -torch.rand((h,), device=cuda) - 0.5
-    y, state = ssd_ops.ssd_chunk_scan(x, dt, A, B, C, chunk=32)
+    y, state = ssd_ops.ssd_chunk_scan(x, dt, A, B, C, chunk=chunk)
     yr, sr = ssd_ops.ssd_chunk_scan(x.contiguous(), dt, A, B.contiguous(),
-                                    C.contiguous(), chunk=32)
+                                    C.contiguous(), chunk=chunk)
     torch.testing.assert_close(y, yr, atol=0, rtol=0)
     torch.testing.assert_close(state, sr, atol=0, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("b,s,h,p,g,n,chunk", [
+    (2, 128, 4, 16, 1, 32, 32),
+    (1, 400, 4, 64, 1, 128, 100),   # halves of 200: two ragged q tiles each
+    (2, 1024, 16, 64, 1, 128, 256),
+    (1, 128, 5, 3, 1, 8, 32),       # 24-float states packed in the scratch
+])
+def test_ssd_kernel_continues_from_a_state(cuda, b, s, h, p, g, n, chunk,
+                                           dtype):
+    """The second half started from the first half's state equals the
+    whole sequence in one call."""
+    x, dt, A, B, C = _ssd_inputs(cuda, b, s, h, p, g, n, dtype, seed=17)
+    half = s // 2
+    y1, s1 = ssd_ops.ssd_chunk_scan(x[:, :half], dt[:, :half].contiguous(),
+                                    A, B[:, :half], C[:, :half], chunk=chunk)
+    before = ssd_ops.ssd_chunk_scan.launches
+    y2, s2 = ssd_ops.ssd_chunk_scan(x[:, half:], dt[:, half:].contiguous(),
+                                    A, B[:, half:], C[:, half:], chunk=chunk,
+                                    init=s1)
+    torch.cuda.synchronize()
+    assert ssd_ops.ssd_chunk_scan.launches == before + 1
+    yr, sr = ssd_ref(x, dt, A, B, C)
+    tol = SSD_TOL[dtype]
+    torch.testing.assert_close(torch.cat([y1, y2], 1).float(), yr, atol=tol,
+                               rtol=tol)
+    torch.testing.assert_close(s2, sr, atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+def test_ssd_kernels_in_cuda_graph(cuda):
+    """The bf16 op's three launches are captured and replayed."""
+    x, dt, A, B, C = _ssd_inputs(cuda, 2, 512, 8, 64, 1, 128, "bfloat16")
+    ssd_ops.ssd_chunk_scan(x, dt, A, B, C)          # warm-up, outside
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        y, state = ssd_ops.ssd_chunk_scan(x, dt, A, B, C)
+    x.copy_(torch.flip(x, (1,)))
+    graph.replay()
+    torch.cuda.synchronize()
+    yr, sr = ssd_ref(x, dt, A, B, C)
+    torch.testing.assert_close(y.float(), yr, atol=2e-2, rtol=2e-2)
+    torch.testing.assert_close(state, sr, atol=2e-2, rtol=2e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_ssd_scan_on_card_never_takes_a_plain_path(cuda, monkeypatch, dtype):
+    """ssd_scan with a state, on CUDA tensors, launches the kernels: the
+    plain versions are made to raise."""
+    from repro_torch.models import ssm
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a CUDA tensor reached a plain path")
+
+    monkeypatch.setattr(ssd_ops, "ssd_ref", refuse)
+    monkeypatch.setattr(ssm, "_ssd_chunked", refuse)
+    x, dt, A, B, C = _ssd_inputs(cuda, 1, 300, 4, 16, 1, 32, dtype)
+    init = torch.randn((1, 4, 32, 16), device=cuda)
+    before = ssd_ops.ssd_chunk_scan.launches
+    y, state = ssm.ssd_scan(x, dt, A, B, C, 128, init)
+    torch.cuda.synchronize()
+    assert ssd_ops.ssd_chunk_scan.launches == before + 1
+    assert y.shape == x.shape and torch.isfinite(y.float()).all()
+    assert torch.isfinite(state).all()
 
 
 def _decode_lengths_case(cuda, dtype, S, lengths, window=0, h=8, kv=2,
