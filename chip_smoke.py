@@ -24,6 +24,14 @@ Phases (each raises on failure, so any failed check exits non-zero):
                 of prefill, of the whole generate run and of a teacher-forced
                 forward pass; for mamba2-2.7b one prefill under
                 torch.profiler (the ten device ops that take the most time)
+  6. lake     - the yi-9b of phase 5 saved as a Hudi checkpoint table
+                (LocalFS, in a temporary directory), synced to Iceberg and
+                Delta by the port's XTable core, restored through the
+                Iceberg view by path, through a read plane and by catalog
+                name, and once through the Delta view; every restored
+                tensor equal to the saved one, and phase 5's 4 requests
+                served from each restored engine with the same tokens and
+                kernel launches as from the original weights
 The last two lines are the kernels JSON line and the result line.
 """
 
@@ -31,8 +39,11 @@ from __future__ import annotations
 
 import argparse
 import json
+import resource
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from dataclasses import replace
 from pathlib import Path
@@ -43,7 +54,10 @@ import torch.nn.functional as F
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
+from repro_torch.checkpoint import LSTCheckpointManager, leaf_paths  # noqa: E402
+from repro_torch.checkpoint.manager import MAX_CHUNK_BYTES  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.core import MetadataCache  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.decode_attention import ops as decode_ops  # noqa: E402
 from repro_torch.kernels.decode_attention.ref import decode_attention_ref  # noqa: E402
@@ -51,9 +65,11 @@ from repro_torch.kernels.flash_attention import ops as flash_ops  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import attention_ref  # noqa: E402
 from repro_torch.kernels.ssd import ops as ssd_ops  # noqa: E402
 from repro_torch.kernels.ssd.ref import ssd_ref  # noqa: E402
+from repro_torch.lst import FORMATS, LocalFS, chunkfile  # noqa: E402
+from repro_torch.lst.catalog import Catalog, TablePointer, ViewRef  # noqa: E402
 from repro_torch.models.model import Model  # noqa: E402
 from repro_torch.models.param import count_params, init_params, tree_map  # noqa: E402
-from repro_torch.serve import Request, ServeEngine  # noqa: E402
+from repro_torch.serve import Request, ServeEngine, SnapshotServer  # noqa: E402
 
 # H100 SXM data-sheet peaks (dense): bf16 tensor cores, fp32 CUDA cores, HBM
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
@@ -161,7 +177,7 @@ def counts() -> dict:
 
 
 # ------------------------------------------------------------------ phases
-def phase_device() -> None:
+def phase_device() -> str:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device")
     smi = subprocess.run(
@@ -175,6 +191,7 @@ def phase_device() -> None:
         f"count {torch.cuda.device_count()}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    return card
 
 
 def kernel_resources(name: str, text: str) -> list:
@@ -576,14 +593,16 @@ def profile_prefill(model, params, toks) -> dict:
 
 
 def phase_serve(arch: str, seed: int, kernel_ms: dict, *, min_agreement=0.5,
-                fp32_check: bool = False, profile: bool = False) -> dict:
+                fp32_check: bool = False, profile: bool = False,
+                keep: dict | None = None) -> dict:
     """Serve 4 requests at full width and depth in bf16.  Greedy decode must
     agree with teacher forcing on ``min_agreement`` of the tokens (None:
     reported only); ``fp32_check`` adds ``decode_vs_forward_fp32``.
     ``kernel_ms`` (phase 3's times by kernel) gives each kernel's share of
     prefill: launches x time / prefill seconds.  ``profile`` adds one
     prefill under ``torch.profiler`` (``profile_prefill``), after the timed
-    runs."""
+    runs.  ``keep`` receives the model, its weights, the requests and the
+    served tokens, for phase 6."""
     cfg = get_config(arch)
     model = Model(cfg)
     t0 = time.perf_counter()
@@ -705,6 +724,165 @@ def phase_serve(arch: str, seed: int, kernel_ms: dict, *, min_agreement=0.5,
         del full, warm_cache, step_logits
         torch.cuda.empty_cache()
         stats.update(decode_vs_forward_fp32(cfg, params, toks))
+    if keep is not None:
+        keep.update(model=model, params=params, reqs=reqs, outs=outs)
+    return stats
+
+
+def _register_iceberg_head(fs, path: str, root: Path):
+    """A catalog (under ``root``) whose pointer ``ckpt`` pins the current
+    Iceberg head of ``path``, and a read plane on the same metadata cache:
+    what a sync daemon's catalog publish leaves for a serving fleet."""
+    cache = MetadataCache(fs)
+    idx = cache.index("iceberg", path)
+    token = idx.probe()
+    idx.refresh_to(token)
+    head, _ = idx.pinned_state()
+    idx.end_cycle()
+    catalog = Catalog(fs, str(root / "catalog"))
+    catalog.register_table(
+        TablePointer(name="ckpt", base_path=path, source_format="iceberg",
+                     views={"iceberg": ViewRef(token, head)}),
+        group="serving")
+    return catalog, SnapshotServer(fs, cache=cache)
+
+
+def lake_breakdown(name: str, leaf: torch.Tensor, root: Path) -> dict:
+    """Seconds of each stage the checkpoint manager runs to save and
+    restore one bf16 leaf, each stage timed alone: the copy to the host,
+    serializing its chunks (stats, copies), writing them (LocalFS, with
+    fsync), reading them back, decoding them into one buffer, and the copy
+    to the card.  The bytes are checked to come back equal."""
+    fs, out = LocalFS(), {"leaf": name, "bytes": leaf.numel() * 2}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    host = leaf.cpu()
+    out["d2h_s"] = time.perf_counter() - t0
+    flat = host.view(torch.int16).numpy().view(np.uint16).reshape(-1)
+    n = max(1, -(-flat.nbytes // MAX_CHUNK_BYTES))
+    per = -(-flat.size // n)
+    t0 = time.perf_counter()
+    payloads = [chunkfile.serialize_chunk({"tensor": flat[i * per:
+                                                         (i + 1) * per]})[0]
+                for i in range(n)]
+    out["serialize_s"] = time.perf_counter() - t0
+    paths = [str(root / "breakdown" / f"{i:03d}.chunk") for i in range(n)]
+    t0 = time.perf_counter()
+    for path, payload in zip(paths, payloads):
+        fs.write_bytes(path, payload)
+    out["write_s"] = time.perf_counter() - t0
+    del payloads
+    t0 = time.perf_counter()
+    blobs = [fs.read_bytes(path) for path in paths]
+    out["read_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    back, pos = np.empty(flat.size, np.uint16), 0
+    for blob in blobs:
+        part = chunkfile._parse_full(blob)[0]["tensor"]
+        back[pos:pos + part.size] = part
+        pos += part.size
+    out["decode_s"] = time.perf_counter() - t0
+    del blobs
+    t0 = time.perf_counter()
+    card = torch.from_numpy(back.view(np.int16)).view(torch.bfloat16) \
+        .reshape(leaf.shape).to(leaf.device)
+    torch.cuda.synchronize()
+    out["h2d_s"] = time.perf_counter() - t0
+    if not torch.equal(card, leaf):
+        raise AssertionError(f"lake breakdown: {name} came back different")
+    out["chunks"] = n
+    return out
+
+
+def phase_lake(kept: dict, card: str, want_launches: dict) -> dict:
+    """Save phase 5's yi-9b (its bf16 weights on the card) as a Hudi
+    checkpoint, sync it to Iceberg and Delta, and restore it through
+    ``ServeEngine.from_lake`` by path, read plane and catalog name (Iceberg)
+    and by path (Delta).  Every restored tensor must equal the saved one on
+    the card; each restored engine serves phase 5's requests, whose tokens
+    and kernel launches (``want_launches``) must equal phase 5's.  Then the
+    largest leaf's stages alone (``lake_breakdown``).  The checkpoint lives
+    in a temporary directory, removed at the end."""
+    model, params = kept["model"], kept["params"]
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_lake_"))
+    try:
+        fs = LocalFS()
+        path = str(root / "ckpt")
+        mgr = LSTCheckpointManager(fs, path, fmt="hudi",
+                                   sync_targets=("iceberg", "delta"),
+                                   async_sync=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mgr.save(0, {"params": params})
+        save_s = time.perf_counter() - t0
+        mgr.wait_for_sync()
+        sync_s = time.perf_counter() - t0 - save_s
+        files = mgr.handle.snapshot().files
+        nbytes = sum(f.size_bytes for f in files.values())
+        for fmt in ("iceberg", "delta"):
+            view = FORMATS[fmt].open(fs, path).snapshot().files
+            if sorted(view) != sorted(files):
+                raise AssertionError(f"lake: the {fmt} view lists other "
+                                     f"files than the Hudi table")
+        stats = dict(depth=model.cfg.n_layers, checkpoint_bytes=nbytes,
+                     chunks=len(files), save_s=save_s,
+                     save_GBps=nbytes / save_s / 1e9, sync_s=sync_s)
+        log(f"  lake: {model.cfg.name} {model.cfg.n_layers} layers "
+            f"{model.cfg.dtype}, checkpoint "
+            f"{nbytes:,} bytes in {len(files)} chunks; save {save_s:.2f} s "
+            f"({nbytes / save_s / 1e9:.3f} GB/s), sync to iceberg + delta "
+            f"{sync_s:.3f} s; card {card}")
+
+        catalog, catalog_plane = _register_iceberg_head(fs, path, root)
+        routes = {
+            "iceberg_path": dict(ckpt_path=path, fmt="iceberg"),
+            "iceberg_read_plane": dict(ckpt_path=path, fmt="iceberg",
+                                       read_plane=SnapshotServer(fs)),
+            "iceberg_catalog": dict(fmt="iceberg", read_plane=catalog_plane,
+                                    catalog=catalog, table="ckpt"),
+            "delta_path": dict(ckpt_path=path, fmt="delta"),
+        }
+        saved = leaf_paths(params)
+        for route, kw in routes.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            engine = ServeEngine.from_lake(model, fs, cache_len=SERVE_CACHE,
+                                           **kw)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            got = leaf_paths(engine.params)
+            if [n for n, _ in got] != [n for n, _ in saved]:
+                raise AssertionError(f"lake {route}: leaf names differ")
+            for (name, a), (_, b) in zip(saved, got):
+                if b.device != a.device or not torch.equal(a, b):
+                    raise AssertionError(f"lake {route}: {name} differs")
+            zero_counts()
+            outs = engine.generate(kept["reqs"])
+            torch.cuda.synchronize()
+            launches = counts()
+            stats[f"restore_{route}_s"] = secs
+            stats[f"restore_{route}_GBps"] = nbytes / secs / 1e9
+            log(f"  lake: restore {route} {secs:.2f} s "
+                f"({nbytes / secs / 1e9:.3f} GB/s), {len(saved)} tensors "
+                f"equal; served launches {launches}; card {card}")
+            if outs != kept["outs"]:
+                raise AssertionError(f"lake {route}: served tokens differ "
+                                     f"from the original weights'")
+            if launches != want_launches:
+                raise AssertionError(f"lake {route}: launches {launches}, "
+                                     f"want {want_launches}")
+            del engine, got
+            torch.cuda.empty_cache()
+        name, leaf = max(saved, key=lambda kv: kv[1].numel())
+        stats["breakdown"] = lake_breakdown(name, leaf, root)
+        log("  lake: one leaf's stages alone: " +
+            json.dumps(stats["breakdown"]))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    # the host's high-water mark over the whole run so far (Linux: KiB)
+    stats["host_peak_rss_gib"] = \
+        resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20
+    log("  lake: " + json.dumps(stats))
     return stats
 
 
@@ -715,7 +893,7 @@ def main() -> int:
     t_start = time.perf_counter()
 
     log("== phase 1: device")
-    phase_device()
+    card = phase_device()
     log("== phase 2: build")
     phase_build()
 
@@ -742,7 +920,8 @@ def main() -> int:
     # counts to 0 before it runs and reads them after
     log("== phase 5: serve, yi-9b full width and depth, bf16")
     kernel_ms = {rec["name"]: rec["ms"] for rec in kernels}
-    stats = {"yi-9b": phase_serve("yi-9b", args.seed, kernel_ms)}
+    yi = {}
+    stats = {"yi-9b": phase_serve("yi-9b", args.seed, kernel_ms, keep=yi)}
     torch.cuda.empty_cache()
     log("== phase 5: serve, mamba2-2.7b full width and depth, bf16")
     # bf16 decode vs teacher forcing is reported; the paths are held to
@@ -754,6 +933,13 @@ def main() -> int:
                "ssd_chunk_scan": "mamba2-2.7b"}
     for rec in kernels:
         rec["launches"] = stats[path_of[rec["name"]]]["launches"][rec["name"]]
+    torch.cuda.empty_cache()
+
+    log("== phase 6: lake, yi-9b full width and depth saved as Hudi, "
+        "restored through Iceberg and Delta")
+    phase_lake(yi, card, stats["yi-9b"]["launches"])
+    del yi
+    torch.cuda.empty_cache()
 
     log(f"total {time.perf_counter() - t_start:.1f} s")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

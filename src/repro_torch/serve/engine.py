@@ -1,10 +1,16 @@
-"""Batched serving engine: synchronous prefill + decode with greedy or
-temperature sampling, over the port's model.
+"""Batched serving engine restoring weights through an XTable-translated view.
 
-The reference engine also restores its weights through a lake view
-(``from_lake``); that needs the lake layer, which the port has not copied
-yet, so here the weights are given (``init_params`` or
+Scenario 3 transplanted: the trainer commits checkpoints in one format's
+metadata; the *server* opens the same directory through ANY translated
+view (e.g. Iceberg).  No weight files are copied.
+:meth:`ServeEngine.from_lake` restores three ways, as the reference engine
+does: from a raw base path, through the read plane's pinned snapshots
+(``read_plane=``), or by catalog NAME (``catalog=`` + ``table=``).  The
+weights may also be given directly (``init_params`` or
 ``params_from_jax``).
+
+The engine itself: synchronous batched prefill + decode with greedy or
+temperature sampling, over the port's model.
 """
 
 from __future__ import annotations
@@ -14,6 +20,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from repro_torch.checkpoint import LSTCheckpointManager
 from repro_torch.models.model import Model
 
 
@@ -35,6 +42,46 @@ class ServeEngine:
         self.params = params
         self.cache_len = cache_len
         self.device = model.device
+
+    @classmethod
+    def from_lake(cls, model: Model, fs, ckpt_path: str | None = None, *,
+                  fmt: str = "iceberg", cache_len: int = 256,
+                  read_plane=None, catalog=None,
+                  table: str | None = None) -> "ServeEngine":
+        """Restore weights through the translated ``fmt`` view onto
+        ``model.device``.
+
+        With a ``read_plane`` (:class:`~repro_torch.serve.read_plane
+        .SnapshotServer`) the checkpoint table resolves through a memoized
+        head-keyed snapshot instead of a private metadata replay.
+
+        With a ``catalog`` (:class:`~repro_torch.lst.catalog.Catalog`) the
+        table is addressed by registered ``table`` *name*: the catalog
+        pointer supplies the base path and the published ``(token,
+        commit)`` pin for the requested view, so the restore observes
+        exactly the atomically published head.  (The pin rides the read
+        plane; a catalog without a ``read_plane`` still resolves the path
+        by name but restores the live head.)
+        """
+        table_state = None
+        if catalog is not None:
+            if table is None:
+                raise ValueError("catalog-based restore needs table=<name>")
+            ptr = catalog.resolve(table)
+            ckpt_path = ptr.base_path
+            ref = ptr.view(fmt)
+            if read_plane is not None:
+                table_state = read_plane.read_at(ckpt_path, fmt,
+                                                 ref.token, ref.commit).state
+        elif ckpt_path is None:
+            raise ValueError("need ckpt_path (or catalog= + table=)")
+        elif read_plane is not None:
+            table_state = read_plane.read(ckpt_path, fmt).snapshot.state
+        mgr = LSTCheckpointManager(fs, ckpt_path, fmt=fmt, sync_targets=())
+        _, state = mgr.restore_pytree({"params": model.param_template()},
+                                      fmt=fmt, state=table_state,
+                                      device=model.device)
+        return cls(model, state["params"], cache_len=cache_len)
 
     def generate(self, requests: list, *, temperature: float = 0.0,
                  seed: int = 0) -> list:

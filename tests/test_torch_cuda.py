@@ -308,3 +308,36 @@ def test_decode_kernel_in_cuda_graph_reads_lengths_on_device(cuda, dtype):
         ref = decode_attention_ref(q, k, v, lens)
         torch.testing.assert_close(out.float(), ref.float(),
                                    atol=TOL[dtype], rtol=TOL[dtype])
+
+
+@pytest.mark.cuda
+def test_from_lake_restores_full_width_yi9b_onto_the_card(cuda):
+    """A 2-layer full-width bf16 yi-9b saved as a Hudi checkpoint in a
+    MemoryFS, synced to Iceberg, restored through the Iceberg view by
+    ``from_lake`` onto the card: equal weights, equal greedy tokens."""
+    from dataclasses import replace
+
+    from repro_torch.checkpoint import LSTCheckpointManager, leaf_paths
+    from repro_torch.configs import get_config
+    from repro_torch.lst import MemoryFS
+    from repro_torch.models.model import Model
+    from repro_torch.models.param import init_params
+    from repro_torch.serve import Request, ServeEngine
+
+    model = Model(replace(get_config("yi-9b"), n_layers=2))
+    params = init_params(model.param_template(),
+                         torch.Generator(device=cuda).manual_seed(0))
+    fs = MemoryFS()
+    LSTCheckpointManager(fs, "mem/ckpt", fmt="hudi",
+                         sync_targets=("iceberg",)).save(0, {"params": params})
+    engine = ServeEngine.from_lake(model, fs, "mem/ckpt", fmt="iceberg",
+                                   cache_len=128)
+    saved, restored = leaf_paths(params), leaf_paths(engine.params)
+    assert [n for n, _ in restored] == [n for n, _ in saved]
+    for (name, a), (_, b) in zip(saved, restored):
+        assert b.device == a.device and b.dtype == a.dtype, name
+        assert torch.equal(a, b), name
+    rng = np.random.default_rng(0)
+    reqs = [Request(rng.integers(0, 63999, n).tolist(), 6) for n in (40, 17)]
+    want = ServeEngine(model, params, cache_len=128).generate(reqs)
+    assert engine.generate(reqs) == want
