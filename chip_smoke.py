@@ -32,6 +32,18 @@ Phases (each raises on failure, so any failed check exits non-zero):
                 tensor equal to the saved one, and phase 5's 4 requests
                 served from each restored engine with the same tokens and
                 kernel launches as from the original weights
+  7. train    - yi-9b at full width, 4 layers, bf16 with the fp32 master:
+                a lake corpus (Delta) read by LakeDataLoader, trainer A runs
+                4 steps (b 4 x s 2048; attention forward and backward in the
+                CUDA kernels, 8 forward and 4 backward launches a step),
+                commits the train state as a Hudi checkpoint synced to
+                Iceberg and Delta; trainer B resumes through the Iceberg view
+                with every tensor and the loader row equal, and its step 4
+                loss equals A's
+Phase 3 also holds the flash-attention backward kernel against its plain
+version (autograd through the forward's) and times it at the training
+shape; phase 4 also holds every gradient of a 2-layer fp32 train step on
+the card against the CPU's at 2e-3.
 The last two lines are the kernels JSON line and the result line.
 """
 
@@ -58,18 +70,23 @@ from repro_torch.checkpoint import LSTCheckpointManager, leaf_paths  # noqa: E40
 from repro_torch.checkpoint.manager import MAX_CHUNK_BYTES  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import MetadataCache  # noqa: E402
+from repro_torch.data import LakeDataLoader, write_synth_corpus  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.decode_attention import ops as decode_ops  # noqa: E402
 from repro_torch.kernels.decode_attention.ref import decode_attention_ref  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as flash_ops  # noqa: E402
-from repro_torch.kernels.flash_attention.ref import attention_ref  # noqa: E402
+from repro_torch.kernels.flash_attention.ref import (  # noqa: E402
+    attention_bwd_ref, attention_lse_ref, attention_ref)
 from repro_torch.kernels.ssd import ops as ssd_ops  # noqa: E402
 from repro_torch.kernels.ssd.ref import ssd_ref  # noqa: E402
 from repro_torch.lst import FORMATS, LocalFS, chunkfile  # noqa: E402
 from repro_torch.lst.catalog import Catalog, TablePointer, ViewRef  # noqa: E402
 from repro_torch.models.model import Model  # noqa: E402
-from repro_torch.models.param import count_params, init_params, tree_map  # noqa: E402
+from repro_torch.models.param import (count_params, init_params,  # noqa: E402
+                                      tree_leaves, tree_map)
+from repro_torch.optim import AdamWConfig  # noqa: E402
 from repro_torch.serve import Request, ServeEngine, SnapshotServer  # noqa: E402
+from repro_torch.train import Trainer, TrainerConfig, make_loss_fn  # noqa: E402
 
 # H100 SXM data-sheet peaks (dense): bf16 tensor cores, fp32 CUDA cores, HBM
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
@@ -116,10 +133,13 @@ SSD_SWEEP = [
 SSD_TOL = {torch.float32: 5e-4, torch.bfloat16: 2e-2}
 # the serving shape of phase 5
 SERVE_B, SERVE_PROMPTS, SERVE_NEW, SERVE_CACHE = 4, (2048, 1536, 1024, 512), 32, 4096
+# the training shape of phase 7: yi-9b at full width, cut to 4 layers
+TRAIN_LAYERS, TRAIN_B, TRAIN_S = 4, 4, 2048
 # the counted wrappers, by kernel name
 KERNELS = {"flash_attention": flash_ops.flash_attention,
            "decode_attention": decode_ops.decode_attention,
-           "ssd_chunk_scan": ssd_ops.ssd_chunk_scan}
+           "ssd_chunk_scan": ssd_ops.ssd_chunk_scan,
+           "flash_attention_bwd": flash_ops.flash_attention_bwd}
 
 
 def log(msg: str) -> None:
@@ -144,6 +164,22 @@ def time_ms(fn, args_list, iters: int) -> float:
         torch.cuda.Event(enable_timing=True)
     start.record()
     graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def time_eager_ms(fn, iters: int) -> float:
+    """Device time of one ``fn()`` run eagerly (for work that a CUDA graph
+    cannot capture, such as autograd): CUDA events around ``iters`` calls
+    after one warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), \
+        torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
@@ -281,6 +317,90 @@ def phase_flash(gen, main_shape) -> dict:
                     "achieved_tflops": flops / ms / 1e9,
                     "library_tflops": flops / lib_ms / 1e9,
                     "check_launches": flash_ops.flash_attention.launches}))
+    return rec
+
+
+def _flash_bwd_check(gen, shape, dtype, label="") -> tuple:
+    """One forward (with the LSE) and one backward launch against the plain
+    versions on the same inputs: the LSE against ``attention_lse_ref`` and
+    dq, dk, dv against ``attention_bwd_ref`` (autograd through
+    ``attention_ref``), each within TOL (abs + rel).  Returns the inputs,
+    the forward's outputs and the largest gradient error."""
+    b, sq, sk, h, kv, dh, causal, window, softcap = shape
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    q, k, v = _flash_inputs(gen, shape, dtype)
+    dout = torch.randn((b, sq, h, dh), generator=gen, device="cuda").to(dtype)
+    out, lse = flash_ops.flash_attention_with_lse(q, k, v, **kw)
+    grads = flash_ops.flash_attention_bwd(q, k, v, out, dout, lse, **kw)
+    torch.cuda.synchronize()
+    lse_ref = attention_lse_ref(q, k, **kw)
+    if not within(lse, lse_ref, TOL[dtype]):
+        raise AssertionError(f"flash lse {shape} {dtype}: err "
+                             f"{max_err(lse, lse_ref)}")
+    refs = attention_bwd_ref(q, k, v, dout, **kw)
+    errs = [max_err(g, r) for g, r in zip(grads, refs)]
+    log(f"  flash bwd {shape} {str(dtype)[6:]}{label}: max_abs_err dq "
+        f"{errs[0]:.3g} dk {errs[1]:.3g} dv {errs[2]:.3g}; lse "
+        f"{max_err(lse, lse_ref):.3g}")
+    for name, g, r in zip(("dq", "dk", "dv"), grads, refs):
+        if not (torch.isfinite(g.float()).all() and
+                within(g, r, TOL[dtype])):
+            raise AssertionError(f"flash_attention_bwd {shape} {dtype} "
+                                 f"{name}: err {max_err(g, r)} > {TOL[dtype]}")
+    del refs, lse_ref
+    return (q, k, v, out, dout, lse), max(errs)
+
+
+def phase_flash_bwd(gen, main_shape) -> dict:
+    """The backward kernel against its plain version over the sweep and at
+    the training shape (both dtypes), then its time at the training shape
+    in a CUDA graph, the plain version's, and SDPA's backward (a yardstick
+    the port never calls)."""
+    for dtype in (torch.float32, torch.bfloat16):
+        for shape in FLASH_SWEEP + [FLASH_RAGGED]:
+            _flash_bwd_check(gen, shape, dtype)
+    _flash_bwd_check(gen, main_shape, torch.float32, " (training shape)")
+    torch.cuda.empty_cache()
+    dtype = torch.bfloat16
+    args, err = _flash_bwd_check(gen, main_shape, dtype, " (training shape)")
+    b, sq, sk, h, kv, dh, causal, window, softcap = main_shape
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    ms = time_ms(lambda *a: flash_ops.flash_attention_bwd(*a, **kw), [args],
+                 5)
+    q, k, v, out, dout, lse = args
+    plain_ms = time_eager_ms(lambda: attention_bwd_ref(q, k, v, dout, **kw), 2)
+    torch.cuda.empty_cache()
+    qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_(True)
+                  for t in (q, k, v))
+    with torch.enable_grad():
+        ot = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
+                                            enable_gqa=True)
+    dot = dout.transpose(1, 2).contiguous()
+    lib_ms = time_eager_ms(lambda: torch.autograd.grad(
+        ot, (qt, kt, vt), dot, retain_graph=True), 10)
+    del ot, qt, kt, vt, dot
+    # least work: the five products of the backward over the visible pairs,
+    # 2.5 x the forward's; bytes: q, k, v, out, dout, lse read, dq, dk, dv
+    # written, each once
+    flops = 2.5 * 4.0 * b * h * dh * _flash_visible_pairs(sq, sk, causal,
+                                                           window)
+    nbytes = sum(t.numel() * t.element_size() for t in args) + \
+        2 * (q.numel() + k.numel() + v.numel())
+    bms, by = bound_ms(flops, nbytes, dtype)
+    rec = dict(name="flash_attention_bwd", route="cuda",
+               source="src/repro_torch/kernels/flash_attention/csrc/"
+                      "flash_attention_bwd.cu",
+               replaces="src/repro/models/layers.py:101",
+               max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
+               bound_by=by, library_ms=lib_ms)
+    log(json.dumps({"kernel_check": rec["name"], "shape": list(main_shape),
+                    "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                    "library_ms": lib_ms, "bound_us": bms * 1e3,
+                    "flops": flops, "bytes": nbytes,
+                    "achieved_tflops": flops / ms / 1e9,
+                    "library_tflops": flops / lib_ms / 1e9,
+                    "check_launches":
+                        flash_ops.flash_attention_bwd.launches}))
     return rec
 
 
@@ -505,7 +625,7 @@ def phase_model(arch: str, seed: int, s: int) -> None:
     launches = counts()
     n_attn, n_ssm = _layer_kinds(cfg)
     want = {"flash_attention": n_attn, "decode_attention": 2 * n_attn,
-            "ssd_chunk_scan": n_ssm}
+            "ssd_chunk_scan": n_ssm, "flash_attention_bwd": 0}
     log(f"  model {arch} width {cfg.d_model}, 2 layers, fp32, b={b}, "
         f"prompt {s}: logits max_abs_err prefill {errs[0]:.3g}, decode "
         f"{errs[1]:.3g} {errs[2]:.3g} (tol {tol}); launches {launches}")
@@ -513,6 +633,73 @@ def phase_model(arch: str, seed: int, s: int) -> None:
         raise AssertionError(f"{arch} model logits differ: {errs} > {tol}")
     if launches != want:
         raise AssertionError(f"{arch} model launches {launches}, want {want}")
+
+
+def _loss_and_grads(model, params, batch) -> tuple:
+    """The train loss of ``model`` at ``params`` (moved to its device) on
+    ``batch`` and every parameter's gradient, on the host."""
+    live = tree_map(lambda t: t.to(model.device).requires_grad_(True),
+                    params)
+    loss, _ = make_loss_fn(model, ce_chunk=128)(
+        live, {k: t.to(model.device) for k, t in batch.items()})
+    grads = torch.autograd.grad(loss, tree_leaves(live))
+    return float(loss.detach()), [g.cpu() for g in grads]
+
+
+def well_conditioned(tpl):
+    """``tpl`` with every stacked block weight drawn at std 1/sqrt(fan-in)
+    (the contracted dims: ``embed`` in, or all but ``embed`` out), where the
+    init's own std 1/sqrt(layers) saturates attention (ROADMAP C-k)."""
+    def fix(spec):
+        if spec.axes[:1] != ("layers",) or spec.init != "normal":
+            return spec
+        fan_in = (int(np.prod(spec.shape[1:-1])) if spec.axes[-1] == "embed"
+                  else spec.shape[1])
+        return replace(spec, scale=fan_in ** -0.5)
+    return tree_map(fix, tpl)
+
+
+def phase_model_grads(seed: int, s: int = 128) -> None:
+    """Full width, 2 layers, fp32: the loss and every parameter's gradient
+    of the train loss on the card (flash forward and backward kernels,
+    per-cycle remat) against the plain CPU path on the same weights and
+    batch (b 1), block weights at std 1/sqrt(fan-in) (``well_conditioned``).
+
+    Tolerance 2e-3, phase 4's on the logits: the loss within 2e-3, and each
+    gradient within 2e-3 and within 2e-3 of its largest entry:
+    max |g_card - g_cpu| <= 2e-3 min(1, max |g_cpu|)."""
+    cfg = replace(get_config("yi-9b"), n_layers=2, dtype="float32")
+    tol = 2e-3
+    p_cpu = init_params(well_conditioned(Model(cfg, device="cpu")
+                                         .param_template()),
+                        torch.Generator().manual_seed(seed), device="cpu")
+    toks = torch.from_numpy(np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, (1, s + 1)))
+    batch = {"inputs": toks[:, :-1], "targets": toks[:, 1:]}
+    zero_counts()
+    card = _loss_and_grads(Model(cfg), p_cpu, batch)
+    torch.cuda.synchronize()
+    launches = counts()
+    cpu = _loss_and_grads(Model(cfg, device="cpu"), p_cpu, batch)
+    names = [n for n, _ in leaf_paths(p_cpu)]
+    rows = {n: dict(err=max_err(gc, gp), max=float(gp.abs().max()))
+            for n, gc, gp in zip(names, card[1], cpu[1])}
+    loss_err = abs(card[0] - cpu[0])
+    want = {"flash_attention": 2 * cfg.n_layers, "decode_attention": 0,
+            "ssd_chunk_scan": 0, "flash_attention_bwd": cfg.n_layers}
+    log(f"  train step yi-9b width {cfg.d_model}, 2 layers, fp32, b 1, s {s}: "
+        f"loss card {card[0]:.6f} cpu {cpu[0]:.6f} (|card - cpu| "
+        f"{loss_err:.3g}, tol {tol}); launches {launches}")
+    log("  train step gradients, max |g_card - g_cpu| and max |g_cpu| by "
+        "leaf: " + json.dumps(rows))
+    if not loss_err <= tol:
+        raise AssertionError(f"train loss differs: {loss_err} > {tol}")
+    for n, r in rows.items():
+        if not r["err"] <= tol * min(1.0, r["max"]):
+            raise AssertionError(f"gradient {n} on the card misses the CPU's "
+                                 f"by {r['err']} (max |g| {r['max']})")
+    if launches != want:
+        raise AssertionError(f"train step launches {launches}, want {want}")
 
 
 def _to(tree, device):
@@ -669,7 +856,7 @@ def phase_serve(arch: str, seed: int, kernel_ms: dict, *, min_agreement=0.5,
         raise AssertionError(f"serve: first tokens {[o[0] for o in outs]} "
                              f"!= greedy prefill tokens {first}")
     want_prefill = {"flash_attention": n_attn, "decode_attention": 0,
-                    "ssd_chunk_scan": n_ssm}
+                    "ssd_chunk_scan": n_ssm, "flash_attention_bwd": 0}
     want = dict(want_prefill, decode_attention=n_attn * decode_steps)
     if prefill_launches != want_prefill:
         raise AssertionError(f"serve: prefill launches {prefill_launches}, "
@@ -886,6 +1073,164 @@ def phase_lake(kept: dict, card: str, want_launches: dict) -> dict:
     return stats
 
 
+def _equal_states(a, b) -> int:
+    """Raise unless every tensor of trainer b's state equals trainer a's
+    (same names, device and values); returns the tensor count."""
+    want = leaf_paths({"params": a.params, "opt": a.opt_state})
+    got = leaf_paths({"params": b.params, "opt": b.opt_state})
+    if [n for n, _ in got] != [n for n, _ in want]:
+        raise AssertionError("train: restored leaf names differ")
+    for (name, x), (_, y) in zip(want, got):
+        if y.device != x.device or y.dtype != x.dtype or \
+                not torch.equal(x, y):
+            raise AssertionError(f"train: restored {name} differs")
+    return len(want)
+
+
+def phase_train(card: str, seed: int) -> dict:
+    """Train yi-9b (full width, TRAIN_LAYERS layers, bf16, fp32 master)
+    from a lake corpus: trainer A runs 4 steps and commits its state as a
+    Hudi checkpoint synced to Iceberg and Delta; trainer B resumes through
+    the Iceberg view.  Each of A's steps must launch flash attention
+    2 x layers times (remat) and its backward once a layer, and the loss
+    must fall; B's restored state and loader row must equal A's, and B's
+    step-4 loss A's within 1e-3 relative.  The corpus and checkpoint live
+    in a temporary directory, removed at the end."""
+    cfg = replace(get_config("yi-9b"), n_layers=TRAIN_LAYERS)
+    model = Model(cfg)
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_train_"))
+    try:
+        fs = LocalFS()
+        corpus = str(root / "corpus")
+        t0 = time.perf_counter()
+        write_synth_corpus(fs, corpus, fmt="delta", n_docs=32,
+                           pack_len=TRAIN_S + 1, vocab=cfg.vocab_size,
+                           seed=seed)
+        stats = dict(layers=cfg.n_layers, batch=TRAIN_B, seq=TRAIN_S,
+                     params=count_params(model.param_template()),
+                     corpus_s=time.perf_counter() - t0,
+                     disk_free_gb=shutil.disk_usage(root).free / 1e9)
+
+        def loader():
+            return LakeDataLoader(fs, corpus, "delta", batch_size=TRAIN_B,
+                                  seq_len=TRAIN_S)
+
+        tcfg = TrainerConfig(steps=4, save_every=0, log_every=1,
+                             ckpt_format="hudi",
+                             sync_targets=("iceberg", "delta"), ce_chunk=128,
+                             opt=AdamWConfig(peak_lr=1e-3, warmup_steps=2,
+                                             total_steps=10))
+        a = Trainer(model, loader(), fs, str(root / "ckpt"), tcfg)
+        t0 = time.perf_counter()
+        a.init_or_restore(seed=seed)
+        torch.cuda.synchronize()
+        stats["init_s"] = time.perf_counter() - t0
+
+        # timing hooks around A's step function, save and sync
+        step_fn, step_s, step_launches = a.step_fn, [], []
+
+        def timed_step(*args):
+            zero_counts()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = step_fn(*args)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t)
+            step_launches.append(counts())
+            return out
+
+        save_fn, sync_fn, save_s, sync_s = a.save, a.ckpt.sync_now, [], []
+
+        def timed_sync():
+            t = time.perf_counter()
+            out = sync_fn()
+            sync_s.append(time.perf_counter() - t)
+            return out
+
+        def timed_save(step):
+            t = time.perf_counter()
+            save_fn(step)
+            save_s.append(time.perf_counter() - t)
+
+        a.step_fn, a.ckpt.sync_now, a.save = timed_step, timed_sync, \
+            timed_save
+        torch.cuda.reset_peak_memory_stats()
+        hist = a.run()
+        peak = torch.cuda.max_memory_allocated()
+        run_launches = {name: sum(c[name] for c in step_launches)
+                        for name in KERNELS}
+        st = a.ckpt.handle.snapshot()
+        nbytes = sum(f.size_bytes for f in st.files.values()
+                     if f.partition_values["step"] == "3")
+        write_s = save_s[0] - sync_s[0]
+        losses = [loss for _, loss in hist]
+        stats.update(
+            losses=losses, step_s=step_s,
+            step_s_median_1_3=float(np.median(step_s[1:])),
+            tokens_per_s=TRAIN_B * TRAIN_S / float(np.median(step_s[1:])),
+            peak_mem_gib=peak / 2**30, step_launches=step_launches,
+            checkpoint_bytes=nbytes, save_s=write_s,
+            save_GBps=nbytes / write_s / 1e9, sync_s=sync_s[0])
+        log(f"  train: {cfg.name} {cfg.n_layers} layers {cfg.dtype}, "
+            f"{stats['params']:,} params, b {TRAIN_B} x s {TRAIN_S}; losses "
+            f"{[round(x, 4) for x in losses]}; step s {step_s} (median of "
+            f"1-3 {stats['step_s_median_1_3']:.3f}); peak memory "
+            f"{peak / 2**30:.2f} GiB; launches per step {step_launches}")
+        log(f"  train: save {write_s:.2f} s ({nbytes:,} bytes, "
+            f"{nbytes / write_s / 1e9:.3f} GB/s), sync to iceberg + delta "
+            f"{sync_s[0]:.3f} s; card {card}")
+        want = {"flash_attention": 2 * cfg.n_layers, "decode_attention": 0,
+                "ssd_chunk_scan": 0, "flash_attention_bwd": cfg.n_layers}
+        for i, c in enumerate(step_launches):
+            if c != want:
+                raise AssertionError(f"train step {i}: launches {c}, want "
+                                     f"{want}")
+        if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+            raise AssertionError(f"train: the loss did not fall: {losses}")
+
+        # B resumes through the Iceberg view
+        b = Trainer(model, loader(), fs, str(root / "ckpt"),
+                    replace(tcfg, steps=5, restore_format="iceberg"))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        start = b.init_or_restore()
+        torch.cuda.synchronize()
+        stats["restore_s"] = time.perf_counter() - t0
+        stats["restore_GBps"] = nbytes / stats["restore_s"] / 1e9
+        if start != 4:
+            raise AssertionError(f"train: B resumed at {start}, want 4")
+        n_equal = _equal_states(a, b)
+        if b.loader.row != a.loader.row:
+            raise AssertionError(f"train: loader row {b.loader.row} != "
+                                 f"{a.loader.row}")
+        # A takes its step 4 (no save); B runs its step 4 and saves
+        a.step_fn = step_fn
+        _, _, met = a.step_fn(a.params, a.opt_state, a.next_batch())
+        loss_a = float(met["loss"])
+        t0 = time.perf_counter()
+        hist_b = b.run()
+        stats["b_run_s"] = time.perf_counter() - t0
+        loss_b = hist_b[-1][1]
+        stats.update(resumed_at=start, tensors_equal=n_equal,
+                     loader_row=b.loader.row, step4_loss_a=loss_a,
+                     step4_loss_b=loss_b,
+                     step4_rel_diff=abs(loss_b - loss_a) / abs(loss_a))
+        log(f"  train: B restored through iceberg in "
+            f"{stats['restore_s']:.2f} s ({stats['restore_GBps']:.3f} GB/s), "
+            f"resumed at step {start}, {n_equal} tensors equal, loader row "
+            f"{b.loader.row}; step 4 loss A {loss_a:.6f} B {loss_b:.6f}; "
+            f"card {card}")
+        if not stats["step4_rel_diff"] <= 1e-3:
+            raise AssertionError(f"train: step 4 losses differ: {loss_a} "
+                                 f"{loss_b}")
+        stats["launches"] = run_launches
+        del a, b
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    log("  train: " + json.dumps(stats))
+    return stats
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -909,11 +1254,15 @@ def main() -> int:
                phase_decode(gen, rng, decode_main, main_lengths),
                phase_ssd(gen, ssd_serving_shape())]
     torch.cuda.empty_cache()
+    # the training shape of phase 7 is the serving shape of the forward
+    kernels.append(phase_flash_bwd(gen, flash_main))
+    torch.cuda.empty_cache()
 
     log("== phase 4: model, full width, 2 layers, fp32, card vs CPU")
     phase_model("yi-9b", args.seed, 128)
     # 300 is not a multiple of the 256-row chunk: the model's pad path
     phase_model("mamba2-2.7b", args.seed, 300)
+    phase_model_grads(args.seed)
     torch.cuda.empty_cache()
 
     # each model's path is read on its own: its serve phase sets the
@@ -929,10 +1278,6 @@ def main() -> int:
     stats["mamba2-2.7b"] = phase_serve("mamba2-2.7b", args.seed, kernel_ms,
                                        min_agreement=None, fp32_check=True,
                                        profile=True)
-    path_of = {"flash_attention": "yi-9b", "decode_attention": "yi-9b",
-               "ssd_chunk_scan": "mamba2-2.7b"}
-    for rec in kernels:
-        rec["launches"] = stats[path_of[rec["name"]]]["launches"][rec["name"]]
     torch.cuda.empty_cache()
 
     log("== phase 6: lake, yi-9b full width and depth saved as Hudi, "
@@ -940,6 +1285,19 @@ def main() -> int:
     phase_lake(yi, card, stats["yi-9b"]["launches"])
     del yi
     torch.cuda.empty_cache()
+
+    log(f"== phase 7: train, yi-9b full width, {TRAIN_LAYERS} layers, bf16, "
+        f"from the lake; Hudi checkpoint resumed through Iceberg")
+    stats["train"] = phase_train(card, args.seed)
+    torch.cuda.empty_cache()
+
+    # each kernel's launches on its main path: serving (phase 5) for the
+    # forward kernels, trainer A's run (phase 7) for the backward
+    path_of = {"flash_attention": "yi-9b", "decode_attention": "yi-9b",
+               "ssd_chunk_scan": "mamba2-2.7b",
+               "flash_attention_bwd": "train"}
+    for rec in kernels:
+        rec["launches"] = stats[path_of[rec["name"]]]["launches"][rec["name"]]
 
     log(f"total {time.perf_counter() - t_start:.1f} s")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

@@ -1,7 +1,9 @@
 """Architecture registry of the port: the archs ported so far.
 
-``yi-9b`` (slice 1) and ``mamba2-2.7b`` (slice 2) run in the port; the
-other eight archs of the reference registry are queued in ROADMAP.md.
+``yi-9b`` (slice 1) and ``mamba2-2.7b`` (slice 2) run in the port;
+``stablelm-3b`` (slice 6) runs its smoke config on the CPU (its head_dim 80
+waits for the kernels, ROADMAP B1w); the other seven archs of the reference
+registry are queued in ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -12,6 +14,7 @@ from dataclasses import replace
 from repro_torch.models.config import ModelConfig
 
 ARCH_MODULES = {
+    "stablelm-3b": "stablelm_3b",
     "yi-9b": "yi_9b",
     "mamba2-2.7b": "mamba2_2_7b",
 }

@@ -1,7 +1,8 @@
 """Build the port's CUDA sources with ``nvcc`` and load them with ``ctypes``.
 
-Every kernel lives in ``kernels/<name>/csrc/<name>.cu`` with a plain C
-interface.  A source is compiled at first use into
+Every source lives in ``kernels/<dir>/csrc/<name>.cu`` with a plain C
+interface (``<dir>`` is ``<name>`` but for the flash-attention backward,
+which sits beside its forward).  A source is compiled at first use into
 ``<repo>/build/repro_torch/<name>-<hash>.so`` (the directory is
 git-ignored); the hash covers the source and the flags, so an edited
 source is rebuilt.  ``build_all`` starts one ``nvcc`` per source, all at
@@ -22,11 +23,12 @@ KERNELS_DIR = Path(__file__).resolve().parent
 BUILD_DIR = KERNELS_DIR.parents[2] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-SOURCES = ("flash_attention", "decode_attention", "ssd")
+SOURCES = ("flash_attention", "flash_attention_bwd", "decode_attention", "ssd")
+_DIRS = {"flash_attention_bwd": "flash_attention"}
 
 
 def source_path(name: str) -> Path:
-    return KERNELS_DIR / name / "csrc" / f"{name}.cu"
+    return KERNELS_DIR / _DIRS.get(name, name) / "csrc" / f"{name}.cu"
 
 
 def _nvcc() -> str:

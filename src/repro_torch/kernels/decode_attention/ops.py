@@ -1,7 +1,8 @@
 """Public wrapper of the decode attention kernel.
 
 CPU tensors take the plain version (``ref.decode_attention_ref``); CUDA
-tensors launch the CUDA kernel or raise.  ``decode_attention.launches``
+tensors launch the CUDA kernel or raise, also when an input requires grad
+while grad mode is on (the kernel has no backward).  ``decode_attention.launches``
 counts the kernel launches (one per call: the split pass and its merge).
 """
 
@@ -101,6 +102,12 @@ def decode_attention(q, k_cache, v_cache, lengths, *, window: int = 0,
     if q.device.type == "cpu":
         return decode_attention_ref(q, k_cache, v_cache, lengths,
                                     window=window, softcap=softcap)
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (q, k_cache, v_cache)):
+        raise RuntimeError(
+            "decode_attention: the CUDA kernel has no backward; call it "
+            "under torch.no_grad() or torch.inference_mode() (its output "
+            "would carry no gradient)")
     _check(q, k_cache, v_cache, lengths)
     b, h, dh = q.shape
     S, kv = k_cache.shape[1], k_cache.shape[2]

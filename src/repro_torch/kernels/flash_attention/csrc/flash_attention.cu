@@ -56,6 +56,11 @@
 // fp32 keeps its CUDA-core body (the tolerance of the fp32 path, 3e-5,
 // rules out TF32): 64 x 64 tiles, fp32 FMA, each thread holding a 4 x 4
 // tile of scores and a 4 x dh/16 tile of the output, plain loads.
+//
+// Both entries optionally write the row log-sum-exp of the logits, lse
+// (b, h, sq) fp32, natural log, for the backward (flash_attention_bwd.cu);
+// a null pointer skips it, so serving is unchanged.  A row that sees no
+// key (l = 0) gets +inf, so that exp(logit - lse) = 0 in the backward.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -66,6 +71,10 @@ namespace {
 
 constexpr float NEG = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
+
+// +inf: the lse of a row that sees no key
+__device__ __forceinline__ float pos_inf() { return __int_as_float(0x7f800000); }
 
 // 2^x on the SFU, without exp2f's handling of denormal results
 __device__ __forceinline__ float fexp2(float x) {
@@ -395,8 +404,9 @@ __global__ void __launch_bounds__(HOPPER_THREADS, 1)
 flash_fwd_bf16(const __grid_constant__ CUtensorMap tm_q,
                const __grid_constant__ CUtensorMap tm_k,
                const __grid_constant__ CUtensorMap tm_v,
-               __nv_bfloat16* __restrict__ o, int sq, int sk, int h, int kv,
-               int causal, int window, float softcap, float scale) {
+               __nv_bfloat16* __restrict__ o, float* __restrict__ lse, int sq,
+               int sk, int h, int kv, int causal, int window, float softcap,
+               float scale) {
   constexpr int NB = D / BOX;          // boxes per row
   extern __shared__ unsigned char smem_raw[];
   Smem<D>& sm = *reinterpret_cast<Smem<D>*>(
@@ -516,6 +526,10 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap tm_q,
       l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
       const int row = r0 + 8 * r;
       if (row < sq) {
+        // m is in base-2 units of the logits: lse = ln 2 (m + log2 l)
+        if (lse != nullptr && t == 0)
+          lse[((long)bb * h + hh) * sq + row] =
+              l[r] > 0.f ? (m[r] + log2f(l[r])) * LN2 : pos_inf();
         const float inv = 1.f / fmaxf(l[r], 1e-30f);
         __nv_bfloat16* orow =
             o + (((long)bb * sq + row) * h + hh) * D + 2 * t;
@@ -545,8 +559,8 @@ template <int D>
 __global__ void __launch_bounds__(SIMT_THREADS)
 flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
               const float* __restrict__ v, float* __restrict__ o,
-              int sq, int sk, int h, int kv, int causal, int window,
-              float softcap, float scale) {
+              float* __restrict__ lse, int sq, int sk, int h, int kv,
+              int causal, int window, float softcap, float scale) {
   extern __shared__ float smem[];
   constexpr int LD = D + 1;     // padded row stride of qs / ks
   constexpr int LDP = BK + 1;   // padded row stride of ps
@@ -669,6 +683,9 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
   for (int i = 0; i < RN; ++i) {
     const int qi = q0 + ty * RN + i;
     if (qi < sq) {
+      if (lse != nullptr && tx == 0)
+        lse[((long)bb * h + hh) * sq + qi] =
+            l[i] > 0.f ? m[i] + logf(l[i]) : pos_inf();
       const float denom = fmaxf(l[i], 1e-30f);
 #pragma unroll
       for (int e = 0; e < ON; ++e)
@@ -726,8 +743,9 @@ bool tensor_map(CUtensorMap* map, const void* base, int b, int s, int heads,
 
 template <int D>
 cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o,
-                        int b, int sq, int sk, int h, int kv, int causal,
-                        int window, float softcap, cudaStream_t stream) {
+                        float* lse, int b, int sq, int sk, int h, int kv,
+                        int causal, int window, float softcap,
+                        cudaStream_t stream) {
   CUtensorMap tq, tk, tv;
   if (!tensor_map(&tq, q, b, sq, h, D, HQ) ||
       !tensor_map(&tk, k, b, sk, kv, D, HK) ||
@@ -743,15 +761,16 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o,
   }
   const dim3 grid(h, b, (sq + HQ - 1) / HQ);
   flash_fwd_bf16<D><<<grid, HOPPER_THREADS, smem, stream>>>(
-      tq, tk, tv, static_cast<__nv_bfloat16*>(o), sq, sk, h, kv, causal,
-      window, softcap, 1.0f / sqrtf((float)D));
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), lse, sq, sk, h, kv,
+      causal, window, softcap, 1.0f / sqrtf((float)D));
   return cudaGetLastError();
 }
 
 template <int D>
 cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o,
-                       int b, int sq, int sk, int h, int kv, int causal,
-                       int window, float softcap, cudaStream_t stream) {
+                       float* lse, int b, int sq, int sk, int h, int kv,
+                       int causal, int window, float softcap,
+                       cudaStream_t stream) {
   const int smem = simt_smem_bytes<D>();
   static bool configured = false;
   if (!configured) {
@@ -763,29 +782,30 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o,
   const dim3 grid((sq + BQ - 1) / BQ, h, b);
   flash_fwd_f32<D><<<grid, SIMT_THREADS, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), sq, sk, h, kv,
-      causal, window, softcap, 1.0f / sqrtf((float)D));
+      static_cast<const float*>(v), static_cast<float*>(o), lse, sq, sk, h,
+      kv, causal, window, softcap, 1.0f / sqrtf((float)D));
   return cudaGetLastError();
 }
 
 template <typename T>
-int dispatch(const void* q, const void* k, const void* v, void* o, int b,
-             int sq, int sk, int h, int kv, int dh, int causal, int window,
-             float softcap, void* stream) {
+int dispatch(const void* q, const void* k, const void* v, void* o, void* lse,
+             int b, int sq, int sk, int h, int kv, int dh, int causal,
+             int window, float softcap, void* stream) {
+  float* l = static_cast<float*>(lse);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (b <= 0 || sq <= 0 || sk <= 0 || kv <= 0 || h % kv != 0)
     return (int)cudaErrorInvalidValue;
   constexpr bool bf16 = sizeof(T) == 2;
   if (dh == 64)
-    return (int)(bf16 ? launch_bf16<64>(q, k, v, o, b, sq, sk, h, kv, causal,
-                                        window, softcap, s)
-                      : launch_f32<64>(q, k, v, o, b, sq, sk, h, kv, causal,
-                                       window, softcap, s));
+    return (int)(bf16 ? launch_bf16<64>(q, k, v, o, l, b, sq, sk, h, kv,
+                                        causal, window, softcap, s)
+                      : launch_f32<64>(q, k, v, o, l, b, sq, sk, h, kv,
+                                       causal, window, softcap, s));
   if (dh == 128)
-    return (int)(bf16 ? launch_bf16<128>(q, k, v, o, b, sq, sk, h, kv, causal,
-                                         window, softcap, s)
-                      : launch_f32<128>(q, k, v, o, b, sq, sk, h, kv, causal,
-                                        window, softcap, s));
+    return (int)(bf16 ? launch_bf16<128>(q, k, v, o, l, b, sq, sk, h, kv,
+                                         causal, window, softcap, s)
+                      : launch_f32<128>(q, k, v, o, l, b, sq, sk, h, kv,
+                                        causal, window, softcap, s));
   return (int)cudaErrorInvalidValue;
 }
 
@@ -793,18 +813,21 @@ int dispatch(const void* q, const void* k, const void* v, void* o, int b,
 
 extern "C" {
 
+// lse: (b, h, sq) fp32, or null to skip it
 int flash_attention_f32(const void* q, const void* k, const void* v, void* o,
-                        int b, int sq, int sk, int h, int kv, int dh,
-                        int causal, int window, float softcap, void* stream) {
-  return dispatch<float>(q, k, v, o, b, sq, sk, h, kv, dh, causal, window,
-                         softcap, stream);
+                        void* lse, int b, int sq, int sk, int h, int kv,
+                        int dh, int causal, int window, float softcap,
+                        void* stream) {
+  return dispatch<float>(q, k, v, o, lse, b, sq, sk, h, kv, dh, causal,
+                         window, softcap, stream);
 }
 
 int flash_attention_bf16(const void* q, const void* k, const void* v, void* o,
-                         int b, int sq, int sk, int h, int kv, int dh,
-                         int causal, int window, float softcap, void* stream) {
-  return dispatch<__nv_bfloat16>(q, k, v, o, b, sq, sk, h, kv, dh, causal,
-                                 window, softcap, stream);
+                         void* lse, int b, int sq, int sk, int h, int kv,
+                         int dh, int causal, int window, float softcap,
+                         void* stream) {
+  return dispatch<__nv_bfloat16>(q, k, v, o, lse, b, sq, sk, h, kv, dh,
+                                 causal, window, softcap, stream);
 }
 
 }  // extern "C"

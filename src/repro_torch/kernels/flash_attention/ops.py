@@ -1,8 +1,13 @@
-"""Public wrapper of the flash attention kernel.
+"""Public wrappers of the flash attention kernels, forward and backward.
 
-CPU tensors take the plain version (``ref.attention_ref``); CUDA tensors
-launch the CUDA kernel or raise.  ``flash_attention.launches`` counts the
-kernel launches.
+CPU tensors take the plain versions (``ref.attention_ref``,
+``ref.attention_bwd_ref``); CUDA tensors launch the CUDA kernels or raise.
+``flash_attention`` on CUDA inputs that need a gradient (grad mode on and
+an input requiring grad) goes through ``FlashAttentionFn``: the forward
+kernel also writes the row log-sum-exp, and the backward is the
+hand-written kernel in ``csrc/flash_attention_bwd.cu``, never a plain
+path.  ``flash_attention.launches`` counts forward launches and
+``flash_attention_bwd.launches`` backward calls (three kernels each).
 """
 
 from __future__ import annotations
@@ -13,22 +18,45 @@ import functools
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.kernels.flash_attention.ref import (attention_bwd_ref,
+                                                     attention_ref)
 
 HEAD_DIMS = (64, 128)
 _ENTRY = {torch.float32: "flash_attention_f32",
           torch.bfloat16: "flash_attention_bf16"}
-_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + \
+_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + \
+    [ctypes.c_float, ctypes.c_void_p]
+_BWD_ENTRY = {torch.float32: "flash_attention_bwd_f32",
+              torch.bfloat16: "flash_attention_bwd_bf16"}
+_BWD_ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8 + \
     [ctypes.c_float, ctypes.c_void_p]
 
 
 @functools.cache
 def _entry(dtype):
-    """The C entry for ``dtype``, with its argument types declared."""
+    """The forward C entry for ``dtype``, with its argument types declared."""
     fn = getattr(_build.library("flash_attention"), _ENTRY[dtype])
     fn.argtypes = _ARGTYPES
     fn.restype = ctypes.c_int
     return fn
+
+
+@functools.cache
+def _bwd_entry(dtype):
+    """The backward C entry for ``dtype``, with its argument types declared."""
+    fn = getattr(_build.library("flash_attention_bwd"), _BWD_ENTRY[dtype])
+    fn.argtypes = _BWD_ARGTYPES
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _check_tensor(name, t, device):
+    if not t.is_cuda or t.device != device:
+        raise ValueError(f"{name} is not on {device}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name} must be 16-byte aligned")
 
 
 def _check(q, k, v):
@@ -46,12 +74,29 @@ def _check(q, k, v):
         raise TypeError(f"dtypes {q.dtype}, {k.dtype}, {v.dtype}: want all "
                         "float32 or all bfloat16")
     for name, t in (("q", q), ("k", k), ("v", v)):
-        if not t.is_cuda or t.device != q.device:
-            raise ValueError(f"{name} is not on {q.device}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-        if t.data_ptr() % 16:
-            raise ValueError(f"{name} must be 16-byte aligned")
+        _check_tensor(name, t, q.device)
+
+
+def _launch_fwd(q, k, v, causal, window, softcap, with_lse):
+    """One forward launch -> (out, lse (b, h, sq) fp32 or None)."""
+    _check(q, k, v)
+    b, sq, h, dh = q.shape
+    sk, kv = k.shape[1], k.shape[2]
+    out = torch.empty_like(q)
+    lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device) \
+        if with_lse else None
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = _entry(q.dtype)(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        None if lse is None else lse.data_ptr(), b, sq, sk, h, kv, dh,
+        int(causal), int(window), float(softcap), stream)
+    flash_attention.launches += 1
+    _build.check(err, "flash_attention")
+    return out, lse
+
+
+def _needs_grad(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
@@ -60,18 +105,78 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     if q.device.type == "cpu":
         return attention_ref(q, k, v, causal=causal, window=window,
                              softcap=softcap)
-    _check(q, k, v)
-    b, sq, h, dh = q.shape
-    sk, kv = k.shape[1], k.shape[2]
-    out = torch.empty_like(q)
-    fn = _entry(q.dtype)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-             b, sq, sk, h, kv, dh, int(causal), int(window), float(softcap),
-             stream)
-    flash_attention.launches += 1
-    _build.check(err, "flash_attention")
-    return out
+    if _needs_grad(q, k, v):
+        return FlashAttentionFn.apply(q, k, v, causal, window, softcap)
+    return _launch_fwd(q, k, v, causal, window, softcap, False)[0]
 
 
 flash_attention.launches = 0
+
+
+def flash_attention_with_lse(q, k, v, *, causal: bool = True, window: int = 0,
+                             softcap: float = 0.0):
+    """One forward launch on CUDA tensors -> (out, lse (b, h, sq) fp32):
+    the row log-sum-exp of the logits, +inf for a row that sees no key.
+    Counted in ``flash_attention.launches``; carries no gradient."""
+    return _launch_fwd(q, k, v, causal, window, softcap, True)
+
+
+def flash_attention_bwd(q, k, v, out, dout, lse, *, causal: bool = True,
+                        window: int = 0, softcap: float = 0.0):
+    """(dq, dk, dv) of ``flash_attention`` at (q, k, v) for the output
+    gradient ``dout``; ``out`` and ``lse`` (b, h, sq) fp32 come from the
+    forward.  dk / dv sum over the query heads of each kv head.  CPU
+    tensors take ``attention_bwd_ref`` (which needs neither ``out`` nor
+    ``lse``)."""
+    if q.device.type == "cpu":
+        return attention_bwd_ref(q, k, v, dout, causal=causal, window=window,
+                                 softcap=softcap)
+    _check(q, k, v)
+    for name, t in (("out", out), ("dout", dout)):
+        if t.shape != q.shape or t.dtype != q.dtype:
+            raise ValueError(f"{name} {tuple(t.shape)} {t.dtype}: want "
+                             f"{tuple(q.shape)} {q.dtype}")
+        _check_tensor(name, t, q.device)
+    b, sq, h, dh = q.shape
+    if lse.shape != (b, h, sq) or lse.dtype != torch.float32:
+        raise ValueError(f"lse {tuple(lse.shape)} {lse.dtype}: want "
+                         f"({b}, {h}, {sq}) float32")
+    _check_tensor("lse", lse, q.device)
+    sk, kv = k.shape[1], k.shape[2]
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    delta = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = _bwd_entry(q.dtype)(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        dout.data_ptr(), lse.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+        dv.data_ptr(), delta.data_ptr(), b, sq, sk, h, kv, dh, int(causal),
+        int(window), float(softcap), stream)
+    flash_attention_bwd.launches += 1
+    _build.check(err, "flash_attention_bwd")
+    return dq, dk, dv
+
+
+flash_attention_bwd.launches = 0
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """Flash attention with its gradient, on CUDA tensors only: both
+    directions are the hand-written kernels.  On the CPU, autograd through
+    ``attention_ref`` (what ``flash_attention`` returns there) is the
+    gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, softcap):
+        out, lse = flash_attention_with_lse(q, k, v, causal=causal,
+                                            window=window, softcap=softcap)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.opts = dict(causal=causal, window=window, softcap=softcap)
+        return out
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, dout.contiguous(), lse,
+                                         **ctx.opts)
+        return dq, dk, dv, None, None, None

@@ -1,7 +1,8 @@
 """Public wrapper of the SSD (Mamba-2) chunk-scan kernels.
 
 CPU tensors take the plain version (``ref.ssd_ref``); CUDA tensors launch
-the CUDA kernels or raise.  ``ssd_chunk_scan.launches`` counts calls of the
+the CUDA kernels or raise, also when an input requires grad while grad mode
+is on (the backward is ROADMAP B6).  ``ssd_chunk_scan.launches`` counts calls of the
 op that launched on the card: one per call, whatever the number of kernels.
 
 * bf16 x/B/C: three kernels per call (``csrc/ssd.cu``): chunk states, the
@@ -272,6 +273,11 @@ def ssd_chunk_scan(x, dt, A, B, C, *, chunk: int = 256, init=None):
     if x.device.type == "cpu":
         y, state = ssd_ref(x, dt, A, B, C, init)
         return y.to(x.dtype), state
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (x, dt, A, B, C, init)):
+        raise RuntimeError(
+            "ssd_chunk_scan: the CUDA kernels have no backward yet (ROADMAP "
+            "B6); call them under torch.no_grad() or torch.inference_mode()")
     check_operands(x, dt, A, B, C, init)
     _check_device(x, dt, A, B, C, init)
     b, s, h, p = x.shape

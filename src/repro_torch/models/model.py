@@ -4,21 +4,34 @@ Layers are grouped into a repeating *cycle*; stacked cycle parameters carry
 a leading layer dim, and the reference's ``lax.scan`` over them becomes a
 Python loop over index ``c``.  Entry points:
 
+* ``forward_hidden`` — the train pass, with autograd: final-norm hidden
+  states (b, s, d) and the aux loss (the loss projects them chunk by chunk)
 * ``forward``     — full teacher-forced pass -> (logits fp32, aux)
 * ``prefill``     — forward + KV cache construction
 * ``decode_step`` — one new token against the cache (updated in place)
 
+The last three run under ``torch.inference_mode``.  In the train pass
+each cycle is rematerialised (``torch.utils.checkpoint``, non-reentrant)
+unless ``cfg.remat == "none"``, as the reference's ``jax.checkpoint`` per
+cycle does: the backward runs each cycle's forward again, so flash
+attention launches twice per layer and its backward once.  Stacked cycle
+parameters are split once per pass with ``unbind``, whose backward stacks
+the per-layer gradients in one pass.
+
 Attention dispatch: on the card, prefill / train attention goes through the
-CUDA flash-attention kernel and decode through the CUDA decode-attention
+CUDA flash-attention kernel (with a gradient, ``FlashAttentionFn``: the
+hand-written backward kernel) and decode through the CUDA decode-attention
 kernel (with ``lengths = min(pos + 1, cache size)``); on the CPU both take
-the plain versions in ``layers``.  The cache is written in ring order
-(slot = position % cache size), which matches the reference whenever the
-prompt fits the cache.
+the plain versions in ``layers``, with torch autograd.  The cache is
+written in ring order (slot = position % cache size), which matches the
+reference whenever the prompt fits the cache.
 
 SSM blocks (``models/ssm.py``): on the card the SSD chunk scan of prefill /
 train goes through the CUDA SSD kernel, on the CPU through the chunked
 plain path; the single-token decode step is plain PyTorch on both.  Their
-cache is the conv tail and the fp32 state, written in place.
+cache is the conv tail and the fp32 state, written in place.  The SSD
+kernels have no backward yet (ROADMAP B6): a grad-enabled train pass of
+SSM blocks raises on the card and runs the chunked plain path on the CPU.
 """
 
 from __future__ import annotations
@@ -26,6 +39,7 @@ from __future__ import annotations
 import math
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import DTYPES, resolve_device
 from repro_torch.kernels.decode_attention.ops import decode_attention
@@ -92,6 +106,14 @@ def _block_template(cfg: ModelConfig, spec: LayerSpec) -> dict:
     if spec.mlp:
         t["mlp"] = _mlp_part_template(cfg, spec)
     return t
+
+
+def _unstack(tree, n: int) -> list:
+    """A tree of stacked (n, ...) tensors -> n trees of per-layer views."""
+    if isinstance(tree, dict):
+        subs = {k: _unstack(v, n) for k, v in tree.items()}
+        return [{k: sub[c] for k, sub in subs.items()} for c in range(n)]
+    return list(tree.unbind(0))
 
 
 def _proj(x, w):
@@ -250,16 +272,29 @@ class Model:
         return x
 
     # -------------------------------------------------------------- stacks
+    def _cycle(self, x, cp, *, mode, cache=None, pos=None):
+        """One cycle of blocks: ``cp`` / ``cache`` hold its layer's
+        parameters / cache views by block key."""
+        for i, spec in enumerate(self.cfg.cycle):
+            key = f"s{i}"
+            x = self.apply_block(x, cp[key], spec, mode=mode,
+                                 cache=None if cache is None else cache[key],
+                                 pos=pos)
+        return x
+
     def _run_blocks(self, x, blocks, *, mode, cache=None, pos=None):
         cfg = self.cfg
+        layers = _unstack(blocks, cfg.n_cycles)
+        remat = mode == "train" and cfg.remat != "none" \
+            and torch.is_grad_enabled()
         for c in range(cfg.n_cycles):
-            for i, spec in enumerate(cfg.cycle):
-                key = f"s{i}"
-                x = self.apply_block(
-                    x, tree_map(lambda t: t[c], blocks[key]), spec, mode=mode,
-                    cache=None if cache is None else
-                    tree_map(lambda t: t[c], cache[key]),
-                    pos=pos)
+            if remat:
+                x = checkpoint(self._cycle, x, layers[c], mode=mode,
+                               use_reentrant=False, preserve_rng_state=False)
+            else:
+                x = self._cycle(x, layers[c], mode=mode,
+                                cache=None if cache is None else
+                                tree_map(lambda t: t[c], cache), pos=pos)
         return x
 
     def head_weights(self, params):
@@ -281,6 +316,21 @@ class Model:
         return x
 
     # ------------------------------------------------------------ entries
+    def forward_hidden(self, params, tokens):
+        """The train pass, with autograd: final-norm hidden states
+        (b, s, d) and the aux loss (0: no MoE yet); no logits are formed.
+        Reference: ``repro/models/model.py::Model.forward_hidden``."""
+        cfg = self.cfg
+        if tokens.device.type == "cuda" and torch.is_grad_enabled() and \
+                any(spec.kind != "attn" for spec in cfg.cycle):
+            raise NotImplementedError(
+                f"{cfg.name}: training SSM blocks on the card needs the SSD "
+                f"backward kernel (ROADMAP B6)")
+        x = self._embed(params, tokens)
+        x = self._run_blocks(x, params["blocks"], mode="train")
+        x = L.apply_norm(x, params["final_norm"], cfg)
+        return x, torch.zeros((), dtype=f32, device=x.device)
+
     @torch.inference_mode()
     def forward(self, params, tokens):
         """Teacher-forced pass -> (logits (b,s,V) fp32, aux loss)."""

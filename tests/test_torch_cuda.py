@@ -7,7 +7,10 @@ imports no JAX, so it runs on a machine that has only the port:
 
 Shapes are the Pallas sweep of ``tests/test_kernels.py`` plus ragged
 lengths and empty sequences; tolerances fp32 3e-5, bf16 2e-2 (SSD: fp32
-5e-4, as the reference's SSD test; bf16 x/B/C 2e-2).
+5e-4, as the reference's SSD test; bf16 x/B/C 2e-2).  The flash-attention
+backward kernel is held against autograd through the plain forward
+(``attention_bwd_ref``) at the same tolerances; the train step on the card
+against the CPU's at 2e-3 (see ``test_full_width_train_step_card_vs_cpu``).
 """
 
 import pytest
@@ -20,7 +23,8 @@ from repro_torch.kernels.decode_attention import ops as decode_ops  # noqa: E402
 from repro_torch.kernels.decode_attention.ref import \
     decode_attention_ref  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as flash_ops  # noqa: E402
-from repro_torch.kernels.flash_attention.ref import attention_ref  # noqa: E402
+from repro_torch.kernels.flash_attention.ref import (  # noqa: E402
+    attention_bwd_ref, attention_lse_ref, attention_ref)
 from repro_torch.kernels.ssd import ops as ssd_ops  # noqa: E402
 from repro_torch.kernels.ssd.ref import ssd_ref  # noqa: E402
 
@@ -341,3 +345,226 @@ def test_from_lake_restores_full_width_yi9b_onto_the_card(cuda):
     reqs = [Request(rng.integers(0, 63999, n).tolist(), 6) for n in (40, 17)]
     want = ServeEngine(model, params, cache_len=128).generate(reqs)
     assert engine.generate(reqs) == want
+
+
+# ------------------------------------------------- flash attention backward
+BWD_SHAPES = FLASH_SHAPES + [
+    (1, 200, 200, 16, 1, 64, True, 0, 0.0),      # 16 query heads per kv head
+    (2, 130, 130, 32, 2, 128, True, 0, 0.0),     # g 16 at dh 128, ragged
+    (1, 256, 256, 8, 8, 64, True, 64, 30.0),     # g 1, window + softcap
+]
+
+
+def _bwd_inputs(cuda, dtype, b, sq, sk, h, kv, dh, seed=21):
+    rng = np.random.default_rng(seed)
+    q, k, v = _qkv(rng, b, sq, sk, h, kv, dh)
+    do = rng.standard_normal((b, sq, h, dh), np.float32)
+    return [torch.from_numpy(a).to(cuda, getattr(torch, dtype))
+            for a in (q, k, v, do)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("b,sq,sk,h,kv,dh,causal,window,softcap",
+                         BWD_SHAPES)
+def test_flash_bwd_kernel_vs_plain_on_card(cuda, b, sq, sk, h, kv, dh,
+                                           causal, window, softcap, dtype):
+    q, k, v, do = _bwd_inputs(cuda, dtype, b, sq, sk, h, kv, dh)
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    out, lse = flash_ops.flash_attention_with_lse(q, k, v, **kw)
+    before = flash_ops.flash_attention_bwd.launches
+    grads = flash_ops.flash_attention_bwd(q, k, v, out, do, lse, **kw)
+    torch.cuda.synchronize()
+    assert flash_ops.flash_attention_bwd.launches == before + 1
+    tol = TOL[dtype]
+    torch.testing.assert_close(lse, attention_lse_ref(q, k, **kw), atol=tol,
+                               rtol=tol)
+    for g, r, t in zip(grads, attention_bwd_ref(q, k, v, do, **kw), (q, k, v)):
+        assert g.dtype == t.dtype and g.shape == t.shape
+        assert torch.isfinite(g.float()).all()
+        torch.testing.assert_close(g.float(), r.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_flash_rows_that_see_no_key_give_zero_gradients(cuda, dtype):
+    """sq 200 over sk 64 with a window of 32: rows from 95 on see no key.
+    Their output is 0, their lse +inf, and their gradients 0, not NaN; the
+    other gradients equal the plain ones with those rows' dO set to 0 (the
+    plain softmax spreads an empty row over every key)."""
+    b, sq, sk, h, kv, dh, window = 1, 200, 64, 4, 2, 64, 32
+    q, k, v, do = _bwd_inputs(cuda, dtype, b, sq, sk, h, kv, dh)
+    kw = dict(causal=True, window=window, softcap=0.0)
+    out, lse = flash_ops.flash_attention_with_lse(q, k, v, **kw)
+    dq, dk, dv = flash_ops.flash_attention_bwd(q, k, v, out, do, lse, **kw)
+    torch.cuda.synchronize()
+    empty = torch.arange(sq, device=cuda) >= sk + window - 1
+    assert torch.equal(out[:, empty], torch.zeros_like(out[:, empty]))
+    assert torch.isinf(lse[..., empty]).all() and (lse[..., empty] > 0).all()
+    assert torch.isfinite(lse[..., ~empty]).all()
+    for g in (dq, dk, dv):
+        assert torch.isfinite(g.float()).all()
+    assert torch.equal(dq[:, empty], torch.zeros_like(dq[:, empty]))
+    do0 = do.clone()
+    do0[:, empty] = 0
+    grads0 = flash_ops.flash_attention_bwd(q, k, v, out, do0, lse, **kw)
+    for g, g0 in zip((dq, dk, dv), grads0):
+        assert torch.equal(g, g0)          # dO of empty rows is never read
+    tol = TOL[dtype]
+    for g, r in zip((dq, dk, dv), attention_bwd_ref(q, k, v, do0, **kw)):
+        torch.testing.assert_close(g.float(), r.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+def test_flash_attention_fn_through_autograd_on_card(cuda):
+    """``flash_attention`` on inputs that require grad goes through
+    ``FlashAttentionFn``: one forward (with the lse) and one backward launch,
+    and autograd's gradients are the backward kernel's."""
+    q, k, v, do = _bwd_inputs(cuda, "bfloat16", 2, 256, 256, 8, 2, 128)
+    kw = dict(causal=True, window=0, softcap=0.0)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    f0, b0 = flash_ops.flash_attention.launches, \
+        flash_ops.flash_attention_bwd.launches
+    out = flash_ops.flash_attention(*leaves, **kw)
+    assert out.grad_fn is not None
+    out.backward(do)
+    torch.cuda.synchronize()
+    assert flash_ops.flash_attention.launches == f0 + 1
+    assert flash_ops.flash_attention_bwd.launches == b0 + 1
+    o, lse = flash_ops.flash_attention_with_lse(q, k, v, **kw)
+    for leaf, g in zip(leaves, flash_ops.flash_attention_bwd(q, k, v, o, do,
+                                                             lse, **kw)):
+        assert torch.equal(leaf.grad, g)
+    with torch.no_grad():
+        assert flash_ops.flash_attention(*leaves, **kw).grad_fn is None
+
+
+@pytest.mark.cuda
+def test_decode_and_ssd_kernels_refuse_grad_on_card(cuda):
+    q = torch.randn(2, 4, 64, device=cuda, requires_grad=True)
+    k = torch.randn(2, 32, 2, 64, device=cuda)
+    lengths = torch.full((2,), 16, dtype=torch.int32, device=cuda)
+    with pytest.raises(RuntimeError, match="no backward"):
+        decode_ops.decode_attention(q, k, k, lengths)
+    with torch.no_grad():
+        decode_ops.decode_attention(q, k, k, lengths)
+    x, dt, A, B, C = _ssd_inputs(cuda, 1, 64, 2, 16, 1, 16, "float32")
+    with pytest.raises(RuntimeError, match="ROADMAP B6"):
+        ssd_ops.ssd_chunk_scan(x.requires_grad_(True), dt, A, B, C, chunk=32)
+    with torch.no_grad():
+        ssd_ops.ssd_chunk_scan(x, dt, A, B, C, chunk=32)
+
+
+def _narrow_yi(dtype="bfloat16", layers=2, remat="none"):
+    """yi-9b's smoke config at head_dim 64 (the kernels' smallest)."""
+    from dataclasses import replace
+
+    from repro_torch.configs import smoke_config
+    return replace(smoke_config("yi-9b"), head_dim=64, n_layers=layers,
+                   dtype=dtype, remat=remat)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("remat", ("none", "block"))
+def test_train_step_on_card_never_takes_a_plain_path(cuda, monkeypatch, remat):
+    """A train step on the card with the plain attention versions made to
+    raise: the gradient of attention comes only from the backward kernel,
+    launched once a layer (the forward once a layer, twice with remat)."""
+    from repro_torch.models import layers as L
+    from repro_torch.models.model import Model
+    from repro_torch.models.param import init_params, tree_leaves
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.train import make_train_step
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a CUDA tensor reached a plain path")
+
+    monkeypatch.setattr(flash_ops, "attention_ref", refuse)
+    monkeypatch.setattr(flash_ops, "attention_bwd_ref", refuse)
+    monkeypatch.setattr(L, "blocked_attention", refuse)
+    cfg = _narrow_yi(remat=remat)
+    model = Model(cfg)
+    params = init_params(model.param_template(),
+                         torch.Generator(device=cuda).manual_seed(0))
+    before = [p.clone() for p in tree_leaves(params)]
+    rng = np.random.default_rng(22)
+    batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 96)))
+             .to(cuda) for k in ("inputs", "targets")}
+    f0, b0 = flash_ops.flash_attention.launches, \
+        flash_ops.flash_attention_bwd.launches
+    step = make_train_step(model, AdamWConfig(warmup_steps=0), ce_chunk=32)
+    params, opt, met = step(params, adamw_init(params), batch)
+    torch.cuda.synchronize()
+    per_layer = 2 if remat == "block" else 1
+    assert flash_ops.flash_attention.launches == f0 + per_layer * 2
+    assert flash_ops.flash_attention_bwd.launches == b0 + 2
+    assert np.isfinite(float(met["loss"])) and float(met["grad_norm"]) > 0
+    moved = [not torch.equal(a, b) for a, b in zip(before,
+                                                   tree_leaves(params))]
+    assert all(moved)                     # every leaf got a gradient
+
+
+@pytest.mark.cuda
+def test_ssm_training_raises_on_card(cuda):
+    from dataclasses import replace
+
+    from repro_torch.configs import smoke_config
+    from repro_torch.models.model import Model
+    from repro_torch.models.param import init_params
+    from repro_torch.train import make_loss_fn
+
+    model = Model(replace(smoke_config("mamba2-2.7b"), dtype="float32"))
+    params = init_params(model.param_template(),
+                         torch.Generator(device=cuda).manual_seed(0))
+    tok = torch.zeros((1, 32), dtype=torch.int64, device=cuda)
+    live = {k: v for k, v in params.items()}
+    live["embed"] = params["embed"].requires_grad_(True)
+    with pytest.raises(NotImplementedError, match="ROADMAP B6"):
+        make_loss_fn(model, ce_chunk=16)(live, {"inputs": tok,
+                                                "targets": tok})
+
+
+@pytest.mark.cuda
+def test_full_width_train_step_card_vs_cpu(cuda):
+    """yi-9b at full width, 2 layers, fp32, b 1 x s 64, block weights at
+    std 1/sqrt(fan-in) (the init's 1/sqrt(layers) saturates attention,
+    ROADMAP C-k): the loss and every gradient of the train loss on the card
+    (flash forward and backward, per-cycle remat) against the plain CPU
+    path.  The loss within 2e-3; each gradient within 2e-3 and within 2e-3
+    of its largest entry, as chip_smoke phase 4."""
+    from dataclasses import replace
+
+    from repro_torch.checkpoint import leaf_paths
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import Model
+    from repro_torch.models.param import init_params, tree_leaves, tree_map
+    from repro_torch.train import make_loss_fn
+
+    def fan_in_scale(spec):
+        if spec.axes[:1] != ("layers",) or spec.init != "normal":
+            return spec
+        fan_in = (int(np.prod(spec.shape[1:-1])) if spec.axes[-1] == "embed"
+                  else spec.shape[1])
+        return replace(spec, scale=fan_in ** -0.5)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = replace(get_config("yi-9b"), n_layers=2, dtype="float32")
+    p_cpu = init_params(tree_map(fan_in_scale,
+                                 Model(cfg, device="cpu").param_template()),
+                        torch.Generator().manual_seed(0), device="cpu")
+    toks = torch.from_numpy(np.random.default_rng(23).integers(
+        0, cfg.vocab_size, (1, 65)))
+    out = []
+    for model in (Model(cfg), Model(cfg, device="cpu")):
+        dev = model.device
+        live = tree_map(lambda t: t.to(dev).requires_grad_(True), p_cpu)
+        loss, _ = make_loss_fn(model, ce_chunk=64)(
+            live, {"inputs": toks[:, :-1].to(dev),
+                   "targets": toks[:, 1:].to(dev)})
+        grads = torch.autograd.grad(loss, tree_leaves(live))
+        out.append((float(loss.detach()), [g.cpu() for g in grads]))
+    assert abs(out[0][0] - out[1][0]) <= 2e-3
+    names = [n for n, _ in leaf_paths(p_cpu)]
+    for name, card, cpu in zip(names, out[0][1], out[1][1]):
+        err = float((card - cpu).abs().max())
+        assert err <= 2e-3 * min(1.0, float(cpu.abs().max())), (name, err)

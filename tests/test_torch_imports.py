@@ -29,6 +29,10 @@ PROBE = textwrap.dedent("""
                       or n == "repro" or n.startswith("repro.")))
     print(len(names), bad)
     assert not bad, bad
+    for want in ("repro_torch.data.pipeline", "repro_torch.data.synth",
+                 "repro_torch.optim.adamw", "repro_torch.optim.schedule",
+                 "repro_torch.train.loop", "repro_torch.train.trainer"):
+        assert want in names, want
 """)
 
 
@@ -38,7 +42,7 @@ def test_port_imports_without_jax_or_reference():
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stdout + r.stderr
     n_modules = int(r.stdout.split()[0])
-    assert n_modules >= 59, r.stdout
+    assert n_modules >= 69, r.stdout
 
 
 def test_chip_smoke_imports_neither_jax_nor_reference():
