@@ -39,11 +39,13 @@ Phases (each raises on failure, so any failed check exits non-zero):
                 commits the train state as a Hudi checkpoint synced to
                 Iceberg and Delta; trainer B resumes through the Iceberg view
                 with every tensor and the loader row equal, and its step 4
-                loss equals A's
+                loss equals A's; A's step 4 runs under torch.profiler
+                (device time by class of kernel, the optimizer's span)
 Phase 3 also holds the flash-attention backward kernel against its plain
 version (autograd through the forward's) and times it at the training
-shape; phase 4 also holds every gradient of a 2-layer fp32 train step on
-the card against the CPU's at 2e-3.
+shape, whole and each of its three kernels alone; phase 4 also holds every
+gradient of a 2-layer fp32 train step on the card against the CPU's at
+2e-3.
 The last two lines are the kernels JSON line and the result line.
 """
 
@@ -104,6 +106,14 @@ FLASH_SWEEP = [
     (2, 100, 300, 8, 2, 128, True, 0, 0.0),
     (3, 131, 131, 4, 4, 128, True, 0, 0.0),
     (1, 300, 300, 4, 2, 64, True, 150, 30.0),
+    # the bf16 backward's tiles (dK/dV: 128 keys a block, q tiles of 64;
+    # dQ: 128 q rows a block, key tiles of 64): sk one key block - 1 and sq
+    # one q block + 1; causal sq < sk with sk one block + 1; a window that
+    # crosses q-tile edges; g 8 at dh 128 with b > 1
+    (2, 129, 127, 8, 2, 128, False, 0, 0.0),
+    (1, 65, 129, 4, 1, 64, True, 0, 0.0),
+    (1, 200, 200, 4, 2, 128, True, 70, 0.0),
+    (2, 192, 192, 16, 2, 128, True, 0, 0.0),
 ]
 FLASH_RAGGED = (1, 300, 300, 4, 1, 128, True, 0, 0.0)
 # (b, S, h, kv, dh, window)
@@ -133,6 +143,10 @@ SSD_SWEEP = [
 SSD_TOL = {torch.float32: 5e-4, torch.bfloat16: 2e-2}
 # the serving shape of phase 5
 SERVE_B, SERVE_PROMPTS, SERVE_NEW, SERVE_CACHE = 4, (2048, 1536, 1024, 512), 32, 4096
+# flash attention at the serving shape of phase 5 (yi-9b's heads), which is
+# also the training shape of phase 7
+FLASH_MAIN = (SERVE_B, max(SERVE_PROMPTS), max(SERVE_PROMPTS), 32, 4, 128,
+              True, 0, 0.0)
 # the training shape of phase 7: yi-9b at full width, cut to 4 layers
 TRAIN_LAYERS, TRAIN_B, TRAIN_S = 4, 4, 2048
 # the counted wrappers, by kernel name
@@ -232,11 +246,14 @@ def phase_device() -> str:
 
 def kernel_resources(name: str, text: str) -> list:
     """One line per kernel of source ``name``'s ptxas log: its (mangled)
-    name, registers, barriers, stack and spills."""
+    name, registers, barriers, stack and spills; and any warning that its
+    wgmma products are serialised."""
     out, kernel, spills = [], "?", ""
     for line in text.splitlines():
         if "Compiling entry function" in line:
             kernel = line.split("'")[1] if "'" in line else line
+        elif "serialized" in line:
+            out.append(f"[{name}] {kernel}: {line.strip()}")
         elif "spill" in line:
             spills = line.strip()
         elif "Used" in line:
@@ -351,11 +368,22 @@ def _flash_bwd_check(gen, shape, dtype, label="") -> tuple:
     return (q, k, v, out, dout, lse), max(errs)
 
 
+def flash_bwd_kernel_times(args, kw: dict) -> dict:
+    """Device ms of each of the bf16 backward's kernels alone, and of all
+    three, on one set of buffers (the op allocates its own in every call);
+    ``delta`` runs first, so the others read a D it wrote."""
+    buffers = flash_ops.bwd_buffers(args[0], args[1])
+    stages = {**flash_ops.BWD_STAGES, "all": flash_ops.BWD_ALL_STAGES}
+    return {name: time_ms(lambda *a, bit=bit: flash_ops.launch_bwd_bf16(
+                *a, buffers, stages=bit, **kw), [args], 5)
+            for name, bit in stages.items()}
+
+
 def phase_flash_bwd(gen, main_shape) -> dict:
     """The backward kernel against its plain version over the sweep and at
     the training shape (both dtypes), then its time at the training shape
-    in a CUDA graph, the plain version's, and SDPA's backward (a yardstick
-    the port never calls)."""
+    in a CUDA graph, each of its kernels alone, the plain version's time,
+    and SDPA's backward (a yardstick the port never calls)."""
     for dtype in (torch.float32, torch.bfloat16):
         for shape in FLASH_SWEEP + [FLASH_RAGGED]:
             _flash_bwd_check(gen, shape, dtype)
@@ -367,6 +395,9 @@ def phase_flash_bwd(gen, main_shape) -> dict:
     kw = dict(causal=causal, window=window, softcap=softcap)
     ms = time_ms(lambda *a: flash_ops.flash_attention_bwd(*a, **kw), [args],
                  5)
+    kernels_ms = flash_bwd_kernel_times(args, kw)
+    log("  flash bwd bf16 training shape, each kernel alone and all three on "
+        "one set of buffers (ms): " + json.dumps(kernels_ms))
     q, k, v, out, dout, lse = args
     plain_ms = time_eager_ms(lambda: attention_bwd_ref(q, k, v, dout, **kw), 2)
     torch.cuda.empty_cache()
@@ -399,6 +430,7 @@ def phase_flash_bwd(gen, main_shape) -> dict:
                     "flops": flops, "bytes": nbytes,
                     "achieved_tflops": flops / ms / 1e9,
                     "library_tflops": flops / lib_ms / 1e9,
+                    "kernels_ms": kernels_ms,
                     "check_launches":
                         flash_ops.flash_attention_bwd.launches}))
     return rec
@@ -744,39 +776,101 @@ def decode_vs_forward_fp32(cfg, params, toks, steps: int = 8) -> dict:
     return out
 
 
-def profile_prefill(model, params, toks) -> dict:
-    """One prefill under ``torch.profiler``: the device's busy time against
-    the wall time, and the ten device ops (kernels and copies) that take the
-    most of it.  Raises if the profiler records no device time."""
+def _device_us(e) -> float:
+    return getattr(e, "self_device_time_total", None) \
+        or getattr(e, "self_cuda_time_total", 0.0)
+
+
+def device_profile(fn) -> tuple:
+    """``fn()`` once under ``torch.profiler`` -> (its result, the device ops
+    (kernels and copies) with device time, the wall ms).  Raises if the
+    profiler records no device time."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        model.prefill(params, toks, cache_len=SERVE_CACHE)
+        out = fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-
-    def device_us(e):
-        return getattr(e, "self_device_time_total", None) \
-            or getattr(e, "self_cuda_time_total", 0.0)
-
     cuda = torch.autograd.DeviceType.CUDA
     events = [e for e in prof.key_averages()
-              if getattr(e, "device_type", None) == cuda and device_us(e) > 0]
-    busy_ms = sum(device_us(e) for e in events) / 1e3
-    if busy_ms == 0:
+              if getattr(e, "device_type", None) == cuda and _device_us(e) > 0]
+    if not events:
         raise AssertionError("torch.profiler recorded no device time")
-    top = sorted(events, key=device_us, reverse=True)[:10]
-    out = dict(profile_wall_ms=wall_ms, device_busy_ms=busy_ms,
-               device_idle_share=1.0 - busy_ms / wall_ms,
-               top10=[dict(name=e.key[:100], calls=e.count,
-                           ms=device_us(e) / 1e3,
-                           share=device_us(e) / 1e3 / busy_ms)
-                      for e in top])
+    return out, events, wall_ms
+
+
+def _profile_summary(events, wall_ms: float) -> dict:
+    """Device busy time against the wall time, and the ten device ops that
+    take the most of it."""
+    busy_ms = sum(_device_us(e) for e in events) / 1e3
+    top = sorted(events, key=_device_us, reverse=True)[:10]
+    return dict(profile_wall_ms=wall_ms, device_busy_ms=busy_ms,
+                device_idle_share=1.0 - busy_ms / wall_ms,
+                top10=[dict(name=e.key[:100], calls=e.count,
+                            ms=_device_us(e) / 1e3,
+                            share=_device_us(e) / 1e3 / busy_ms)
+                       for e in top])
+
+
+def profile_prefill(model, params, toks) -> dict:
+    """One prefill under ``torch.profiler``: the device's busy time against
+    the wall time, and the ten device ops (kernels and copies) that take the
+    most of it.  Raises if the profiler records no device time."""
+    _, events, wall_ms = device_profile(
+        lambda: model.prefill(params, toks, cache_len=SERVE_CACHE))
+    out = _profile_summary(events, wall_ms)
     log("  profile of one prefill: " + json.dumps(out))
     return out
+
+
+# device kernels of a train step by class, from their names: cuBLAS and
+# CUTLASS products, the port's flash kernels, and the rest (elementwise,
+# reductions, copies: the optimizer, norms, RoPE, casts, the CE's softmax)
+STEP_CLASSES = (("gemm", ("gemm", "nvjet", "xmma", "cutlass")),
+                ("flash_forward", ("flash_fwd",)),
+                ("flash_backward", ("bwd_dkdv", "bwd_dq", "bwd_delta")))
+
+
+def profile_train_step(step_fn, params, opt_state, batch) -> tuple:
+    """One train step under ``torch.profiler`` -> (the step's result, its
+    split): device busy time against the wall time, device ms by
+    ``STEP_CLASSES``, the optimizer's device span (CUDA events around
+    ``adamw_update``, which the step calls last) and the ten costliest
+    device ops.  Raises if the profiler records no device time."""
+    import repro_torch.train.loop as train_loop
+
+    update, spans = train_loop.adamw_update, []
+
+    def timed_update(*args, **kw):
+        start, end = torch.cuda.Event(enable_timing=True), \
+            torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = update(*args, **kw)
+        end.record()
+        spans.append((start, end))
+        return out
+
+    train_loop.adamw_update = timed_update
+    try:
+        out, events, wall_ms = device_profile(
+            lambda: step_fn(params, opt_state, batch))
+    finally:
+        train_loop.adamw_update = update
+    split = _profile_summary(events, wall_ms)
+    by_class = {name: 0.0 for name, _ in STEP_CLASSES}
+    by_class["other"] = 0.0
+    for e in events:
+        key = e.key.lower()
+        name = next((n for n, marks in STEP_CLASSES
+                     if any(m in key for m in marks)), "other")
+        by_class[name] += _device_us(e) / 1e3
+    split["device_ms_by_class"] = by_class
+    split["optimizer_device_span_ms"] = \
+        sum(s.elapsed_time(e) for s, e in spans)
+    return out, split
 
 
 def phase_serve(arch: str, seed: int, kernel_ms: dict, *, min_agreement=0.5,
@@ -1203,9 +1297,13 @@ def phase_train(card: str, seed: int) -> dict:
         if b.loader.row != a.loader.row:
             raise AssertionError(f"train: loader row {b.loader.row} != "
                                  f"{a.loader.row}")
-        # A takes its step 4 (no save); B runs its step 4 and saves
+        # A takes its step 4 (no save) under torch.profiler; B runs its
+        # step 4 and saves
         a.step_fn = step_fn
-        _, _, met = a.step_fn(a.params, a.opt_state, a.next_batch())
+        (_, _, met), split = profile_train_step(step_fn, a.params,
+                                                a.opt_state, a.next_batch())
+        log(f"  train: profile of A's step 4, {card}: " + json.dumps(split))
+        stats["step_profile"] = split
         loss_a = float(met["loss"])
         t0 = time.perf_counter()
         hist_b = b.run()
@@ -1245,17 +1343,14 @@ def main() -> int:
     log("== phase 3: kernels against their plain versions")
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     rng = np.random.default_rng(args.seed)
-    flash_main = (SERVE_B, max(SERVE_PROMPTS), max(SERVE_PROMPTS), 32, 4, 128,
-                  True, 0, 0.0)
     decode_main = (SERVE_B, SERVE_CACHE, 32, 4, 128, 0)
     main_lengths = rng.integers(max(SERVE_PROMPTS) + 1,
                                 max(SERVE_PROMPTS) + SERVE_NEW, SERVE_B)
-    kernels = [phase_flash(gen, flash_main),
+    kernels = [phase_flash(gen, FLASH_MAIN),
                phase_decode(gen, rng, decode_main, main_lengths),
                phase_ssd(gen, ssd_serving_shape())]
     torch.cuda.empty_cache()
-    # the training shape of phase 7 is the serving shape of the forward
-    kernels.append(phase_flash_bwd(gen, flash_main))
+    kernels.append(phase_flash_bwd(gen, FLASH_MAIN))
     torch.cuda.empty_cache()
 
     log("== phase 4: model, full width, 2 layers, fp32, card vs CPU")

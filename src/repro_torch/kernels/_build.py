@@ -4,9 +4,10 @@ Every source lives in ``kernels/<dir>/csrc/<name>.cu`` with a plain C
 interface (``<dir>`` is ``<name>`` but for the flash-attention backward,
 which sits beside its forward).  A source is compiled at first use into
 ``<repo>/build/repro_torch/<name>-<hash>.so`` (the directory is
-git-ignored); the hash covers the source and the flags, so an edited
-source is rebuilt.  ``build_all`` starts one ``nvcc`` per source, all at
-once.  No PyTorch headers are included, which keeps a build to seconds.
+git-ignored); the hash covers the source, the headers (``*.cuh``) beside
+it and the flags, so an edited source or header is rebuilt.
+``build_all`` starts one ``nvcc`` per source, all at once.  No PyTorch
+headers are included, which keeps a build to seconds.
 """
 
 from __future__ import annotations
@@ -45,7 +46,10 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    h = hashlib.sha256(source_path(name).read_bytes())
+    src = source_path(name)
+    h = hashlib.sha256(src.read_bytes())
+    for header in sorted(src.parent.glob("*.cuh")):
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 

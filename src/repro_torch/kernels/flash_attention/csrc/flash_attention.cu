@@ -62,26 +62,15 @@
 // a null pointer skips it, so serving is unchanged.  A row that sees no
 // key (l = 0) gets +inf, so that exp(logit - lse) = 0 in the backward.
 
-#include <cuda.h>
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "hopper.cuh"
 
 namespace {
 
 constexpr float NEG = -1e30f;
-constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
 
 // +inf: the lse of a row that sees no key
 __device__ __forceinline__ float pos_inf() { return __int_as_float(0x7f800000); }
-
-// 2^x on the SFU, without exp2f's handling of denormal results
-__device__ __forceinline__ float fexp2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
 
 // Is key kj visible from query qi?
 __device__ __forceinline__ bool visible(int qi, int kj, int sk, int causal,
@@ -108,170 +97,11 @@ __device__ __forceinline__ void k_tiles(int q0, int sk, int causal, int window,
   *t_end = k_begin < k_end ? (k_end + TK - 1) / TK : k_begin / TK;
 }
 
-// ------------------------------------------------------- Hopper primitives
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
-               :: "r"(smem_addr(bar)), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               :: "r"(smem_addr(bar)), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
-               :: "r"(smem_addr(bar)) : "memory");
-}
-
-__device__ __forceinline__ uint64_t globaltimer_ns() {
-  uint64_t t;
-  asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(t));
-  return t;
-}
-
-// Wait until the phase of parity `parity` of the barrier has completed.
-// A wait that has not ended after a second traps, so that a broken
-// pipeline fails the launch instead of hanging the card.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  const uint32_t addr = smem_addr(bar);
-  uint32_t done = 0, polls = 0;
-  uint64_t since = 0;
-  while (true) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(addr), "r"(parity) : "memory");
-    if (done) return;
-    if (++polls % 256 == 0) {
-      const uint64_t now = globaltimer_ns();
-      if (since == 0) since = now;
-      else if (now - since > 1000000000ull) __trap();
-    }
-  }
-}
-
-// One TMA box of a rank-4 tensor map into shared memory; completion is
-// counted in bytes on `bar`.
-__device__ __forceinline__ void tma_load4(void* dst, const CUtensorMap* map,
-                                          uint64_t* bar, int c0, int c1,
-                                          int c2, int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.tile"
-      ".mbarrier::complete_tx::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n"
-      :: "r"(smem_addr(dst)), "l"(reinterpret_cast<uint64_t>(map)),
-         "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(smem_addr(bar))
-      : "memory");
-}
-
-// wgmma shared-memory descriptor, 128-byte swizzle: start address, leading
-// and stride byte offsets (all in 16-byte units).
-__device__ __forceinline__ uint64_t gmma_desc(const void* p, uint32_t lbo,
-                                              uint32_t sbo) {
-  return (uint64_t)((smem_addr(p) & 0x3FFFF) >> 4) |
-         ((uint64_t)(lbo >> 4) << 16) | ((uint64_t)(sbo >> 4) << 32) |
-         (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
-}
-
-// Keeps the compiler from moving accumulator reads or writes across the
-// asynchronous wgmma that owns the registers.
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i]) :: "memory");
-}
-template <int M, int N>
-__device__ __forceinline__ void fence_regs(uint32_t (&r)[M][N]) {
-#pragma unroll
-  for (int i = 0; i < M; ++i)
-#pragma unroll
-    for (int j = 0; j < N; ++j) asm volatile("" : "+r"(r[i][j]) :: "memory");
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-// D (64 x 96, fp32) (+)= A (64 x 16, shared, K-major) * B (16 x 96, shared,
-// K-major); scale_d = 0 overwrites D.
-__device__ __forceinline__ void wgmma_ss(float (&d)[48], uint64_t da,
-                                              uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %50, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47}, "
-      "%48, %49, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
-      : "l"(da), "l"(db), "r"(scale_d));
-}
-
-// D (64 x 64, fp32) += A (64 x 16, bf16 registers) * B (16 x 64, shared,
-// MN-major: the transpose bit reads B as stored, rows = the k dimension).
-__device__ __forceinline__ void wgmma_rs(float (&d)[32],
-                                              const uint32_t (&a)[4],
-                                              uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-// D (64 x 128, fp32) += A (64 x 16, bf16 registers) * B (16 x 128, shared,
-// MN-major: the transpose bit reads B as stored, rows = the k dimension).
-__device__ __forceinline__ void wgmma_rs(float (&d)[64],
-                                              const uint32_t (&a)[4],
-                                              uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
 // ----------------------------------------------------------------- bf16
 constexpr int HQ = 128;            // q rows per block: 2 consumer warpgroups
 constexpr int HK = 96;             // keys per K/V tile
 constexpr int STAGES = 3;          // K/V ring
-constexpr int WG = 128;            // threads per warpgroup
 constexpr int HOPPER_THREADS = 2 * WG + 32;   // + one producer warp
-constexpr int BOX = 64;            // elements in one 128-byte swizzled row
 
 // Each tile is D / 64 boxes of (rows x 64) bf16 side by side, each box
 // 128-byte swizzled as TMA writes it; every box starts on 1024 bytes.
@@ -282,11 +112,6 @@ struct Smem {
   alignas(1024) __nv_bfloat16 v[STAGES][HK * D];
   uint64_t q_full, k_full[STAGES], v_full[STAGES], empty[STAGES];
 };
-
-template <int D>
-constexpr int hopper_smem_bytes() {
-  return (int)sizeof(Smem<D>) + 1024;   // + room to align the base
-}
 
 // Online softmax of one 64 x HK score tile held as wgmma accumulators.
 // Element i of a thread: row r0 + 8 ((i >> 1) & 1), key
@@ -389,16 +214,6 @@ __device__ __forceinline__ void issue_pv(float (&acc)[D / 2],
   wgmma_commit();
 }
 
-// P as the register A operand: k-step kk covers keys 16 kk .. + 16.
-__device__ __forceinline__ void pack_p(uint32_t (&pa)[HK / 16][4],
-                                       const float (&sc)[HK / 2]) {
-#pragma unroll
-  for (int kk = 0; kk < HK / 16; ++kk)
-#pragma unroll
-    for (int e = 0; e < 4; ++e)
-      pa[kk][e] = pack_bf16(sc[8 * kk + 2 * e], sc[8 * kk + 2 * e + 1]);
-}
-
 template <int D>
 __global__ void __launch_bounds__(HOPPER_THREADS, 1)
 flash_fwd_bf16(const __grid_constant__ CUtensorMap tm_q,
@@ -409,8 +224,7 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap tm_q,
                float scale) {
   constexpr int NB = D / BOX;          // boxes per row
   extern __shared__ unsigned char smem_raw[];
-  Smem<D>& sm = *reinterpret_cast<Smem<D>*>(
-      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  Smem<D>& sm = aligned_smem<Smem<D>>(smem_raw);
 
   const int hh = blockIdx.x, bb = blockIdx.y;
   const int q0 = (gridDim.z - 1 - blockIdx.z) * HQ;   // heaviest first
@@ -486,7 +300,7 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap tm_q,
       fence_regs(sc);
       softmax_any(sc, m, l, alpha, ql, r0, t_begin * HK, t, sk, causal,
                   window, sl2, cap_in, cap_out);
-      pack_p(pa, sc);
+      pack_a<HK>(pa, sc);
     }
     for (int i = 1; i < n_tiles; ++i) {
       const int s = i % STAGES, sp = (i - 1) % STAGES;
@@ -507,7 +321,7 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap tm_q,
       if (lane == 0) mbar_arrive(&sm.empty[sp]);
 #pragma unroll
       for (int j = 0; j < D / 2; ++j) acc[j] *= alpha[(j >> 1) & 1];
-      pack_p(pa, sc);
+      pack_a<HK>(pa, sc);
     }
     if (n_tiles > 0) {
       const int sp = (n_tiles - 1) % STAGES;
@@ -695,52 +509,6 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 // ----------------------------------------------------------------- launch
-// cuTensorMapEncodeTiled through the runtime's driver entry point, so the
-// library needs no link to libcuda.
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                     cudaEnableDefault, &found);
-#else
-    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
-                            &found);
-#endif
-    if (found == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// Rank-4 map over (dh, heads, seq, batch) of a contiguous (batch, seq,
-// heads, dh) bf16 tensor; a box is (64, 1, rows, 1), 128-byte swizzled, and
-// rows past seq read as zero.
-bool tensor_map(CUtensorMap* map, const void* base, int b, int s, int heads,
-                int dh, int rows) {
-  EncodeTiled fn = encode_tiled();
-  if (fn == nullptr) return false;
-  const cuuint64_t dims[4] = {(cuuint64_t)dh, (cuuint64_t)heads,
-                              (cuuint64_t)s, (cuuint64_t)b};
-  const cuuint64_t strides[3] = {(cuuint64_t)dh * 2,
-                                 (cuuint64_t)heads * dh * 2,
-                                 (cuuint64_t)s * heads * dh * 2};
-  const cuuint32_t box[4] = {(cuuint32_t)BOX, 1, (cuuint32_t)rows, 1};
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base),
-            dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 template <int D>
 cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o,
                         float* lse, int b, int sq, int sk, int h, int kv,
@@ -751,7 +519,7 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o,
       !tensor_map(&tk, k, b, sk, kv, D, HK) ||
       !tensor_map(&tv, v, b, sk, kv, D, HK))
     return cudaErrorInvalidValue;
-  const int smem = hopper_smem_bytes<D>();
+  const int smem = smem_bytes<Smem<D>>();
   static bool configured = false;   // once, so that launches can be captured
   if (!configured) {
     const cudaError_t err = cudaFuncSetAttribute(

@@ -8,6 +8,8 @@ kernel also writes the row log-sum-exp, and the backward is the
 hand-written kernel in ``csrc/flash_attention_bwd.cu``, never a plain
 path.  ``flash_attention.launches`` counts forward launches and
 ``flash_attention_bwd.launches`` backward calls (three kernels each).
+``launch_bwd_bf16`` launches chosen kernels of a bf16 backward on given
+buffers, uncounted, so that ``chip_smoke.py`` can time each alone.
 """
 
 from __future__ import annotations
@@ -30,6 +32,9 @@ _BWD_ENTRY = {torch.float32: "flash_attention_bwd_f32",
               torch.bfloat16: "flash_attention_bwd_bf16"}
 _BWD_ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8 + \
     [ctypes.c_float, ctypes.c_void_p]
+# the bf16 backward's kernels, as bits of the ``stages`` of launch_bwd_bf16
+BWD_STAGES = {"delta": 1, "dkdv": 2, "dq": 4}
+BWD_ALL_STAGES = 7
 
 
 @functools.cache
@@ -46,6 +51,15 @@ def _bwd_entry(dtype):
     """The backward C entry for ``dtype``, with its argument types declared."""
     fn = getattr(_build.library("flash_attention_bwd"), _BWD_ENTRY[dtype])
     fn.argtypes = _BWD_ARGTYPES
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.cache
+def _bwd_stages_entry():
+    """The bf16 backward's C entry that takes a ``stages`` mask."""
+    fn = _build.library("flash_attention_bwd").flash_attention_bwd_bf16_stages
+    fn.argtypes = _BWD_ARGTYPES[:-1] + [ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -121,6 +135,37 @@ def flash_attention_with_lse(q, k, v, *, causal: bool = True, window: int = 0,
     return _launch_fwd(q, k, v, causal, window, softcap, True)
 
 
+def _check_bwd(q, k, v, out, dout, lse):
+    _check(q, k, v)
+    for name, t in (("out", out), ("dout", dout)):
+        if t.shape != q.shape or t.dtype != q.dtype:
+            raise ValueError(f"{name} {tuple(t.shape)} {t.dtype}: want "
+                             f"{tuple(q.shape)} {q.dtype}")
+        _check_tensor(name, t, q.device)
+    b, sq, h = q.shape[:3]
+    if lse.shape != (b, h, sq) or lse.dtype != torch.float32:
+        raise ValueError(f"lse {tuple(lse.shape)} {lse.dtype}: want "
+                         f"({b}, {h}, {sq}) float32")
+    _check_tensor("lse", lse, q.device)
+
+
+def bwd_buffers(q, k):
+    """(dq, dk, dv, delta) of one backward call: the gradients and the
+    (b, h, sq) fp32 scratch of D = rowsum(dO o O)."""
+    b, sq, h, _ = q.shape
+    return (torch.empty_like(q), torch.empty_like(k), torch.empty_like(k),
+            torch.empty((b, h, sq), dtype=torch.float32, device=q.device))
+
+
+def _bwd_args(q, k, v, out, dout, lse, buffers, causal, window, softcap):
+    b, sq, h, dh = q.shape
+    sk, kv = k.shape[1], k.shape[2]
+    return (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            dout.data_ptr(), lse.data_ptr(),
+            *(t.data_ptr() for t in buffers), b, sq, sk, h, kv, dh,
+            int(causal), int(window), float(softcap))
+
+
 def flash_attention_bwd(q, k, v, out, dout, lse, *, causal: bool = True,
                         window: int = 0, softcap: float = 0.0):
     """(dq, dk, dv) of ``flash_attention`` at (q, k, v) for the output
@@ -131,32 +176,34 @@ def flash_attention_bwd(q, k, v, out, dout, lse, *, causal: bool = True,
     if q.device.type == "cpu":
         return attention_bwd_ref(q, k, v, dout, causal=causal, window=window,
                                  softcap=softcap)
-    _check(q, k, v)
-    for name, t in (("out", out), ("dout", dout)):
-        if t.shape != q.shape or t.dtype != q.dtype:
-            raise ValueError(f"{name} {tuple(t.shape)} {t.dtype}: want "
-                             f"{tuple(q.shape)} {q.dtype}")
-        _check_tensor(name, t, q.device)
-    b, sq, h, dh = q.shape
-    if lse.shape != (b, h, sq) or lse.dtype != torch.float32:
-        raise ValueError(f"lse {tuple(lse.shape)} {lse.dtype}: want "
-                         f"({b}, {h}, {sq}) float32")
-    _check_tensor("lse", lse, q.device)
-    sk, kv = k.shape[1], k.shape[2]
-    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    delta = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    _check_bwd(q, k, v, out, dout, lse)
+    buffers = bwd_buffers(q, k)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = _bwd_entry(q.dtype)(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        dout.data_ptr(), lse.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-        dv.data_ptr(), delta.data_ptr(), b, sq, sk, h, kv, dh, int(causal),
-        int(window), float(softcap), stream)
+        *_bwd_args(q, k, v, out, dout, lse, buffers, causal, window, softcap),
+        stream)
     flash_attention_bwd.launches += 1
     _build.check(err, "flash_attention_bwd")
-    return dq, dk, dv
+    return buffers[:3]
 
 
 flash_attention_bwd.launches = 0
+
+
+def launch_bwd_bf16(q, k, v, out, dout, lse, buffers, *, causal: bool = True,
+                    window: int = 0, softcap: float = 0.0,
+                    stages: int = BWD_ALL_STAGES) -> None:
+    """Launch the bf16 backward kernels named by ``stages`` (bits of
+    ``BWD_STAGES``) on ``buffers`` (``bwd_buffers``); all three are
+    ``flash_attention_bwd``.  Counts nothing: ``chip_smoke.py`` times each
+    kernel alone on one set of buffers with it."""
+    if q.dtype != torch.bfloat16:
+        raise TypeError(f"launch_bwd_bf16 takes bfloat16, not {q.dtype}")
+    _check_bwd(q, k, v, out, dout, lse)
+    err = _bwd_stages_entry()(
+        *_bwd_args(q, k, v, out, dout, lse, buffers, causal, window, softcap),
+        stages, torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(err, "flash_attention_bwd")
 
 
 class FlashAttentionFn(torch.autograd.Function):

@@ -352,6 +352,13 @@ BWD_SHAPES = FLASH_SHAPES + [
     (1, 200, 200, 16, 1, 64, True, 0, 0.0),      # 16 query heads per kv head
     (2, 130, 130, 32, 2, 128, True, 0, 0.0),     # g 16 at dh 128, ragged
     (1, 256, 256, 8, 8, 64, True, 64, 30.0),     # g 1, window + softcap
+    # the bf16 kernels' tiles (dK/dV: 128 keys a block, q tiles of 64; dQ:
+    # 128 q rows a block, key tiles of 64)
+    (1, 64, 127, 4, 2, 128, False, 0, 0.0),      # sk one key block - 1
+    (1, 129, 129, 4, 2, 64, True, 0, 0.0),       # sk, sq one block + 1
+    (1, 65, 129, 4, 1, 128, True, 0, 0.0),       # causal, sq < sk
+    (1, 200, 200, 4, 2, 128, True, 70, 0.0),     # window across q tiles
+    (2, 192, 192, 16, 2, 128, True, 0, 0.0),     # g 8 at dh 128, b 2
 ]
 
 
@@ -383,6 +390,26 @@ def test_flash_bwd_kernel_vs_plain_on_card(cuda, b, sq, sk, h, kv, dh,
         assert g.dtype == t.dtype and g.shape == t.shape
         assert torch.isfinite(g.float()).all()
         torch.testing.assert_close(g.float(), r.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+def test_flash_bwd_kernels_one_at_a_time_equal_the_op_on_card(cuda):
+    """``launch_bwd_bf16`` with one kernel at a time (delta, dK/dV, dQ) on
+    one set of buffers gives the op's gradients bit for bit, and counts no
+    launch."""
+    q, k, v, do = _bwd_inputs(cuda, "bfloat16", 2, 200, 200, 8, 2, 128)
+    kw = dict(causal=True, window=0, softcap=0.0)
+    out, lse = flash_ops.flash_attention_with_lse(q, k, v, **kw)
+    want = flash_ops.flash_attention_bwd(q, k, v, out, do, lse, **kw)
+    before = flash_ops.flash_attention_bwd.launches
+    buffers = flash_ops.bwd_buffers(q, k)
+    for bit in flash_ops.BWD_STAGES.values():
+        flash_ops.launch_bwd_bf16(q, k, v, out, do, lse, buffers, stages=bit,
+                                  **kw)
+    torch.cuda.synchronize()
+    assert flash_ops.flash_attention_bwd.launches == before
+    for g, w in zip(buffers[:3], want):
+        assert torch.equal(g, w)
 
 
 @pytest.mark.cuda

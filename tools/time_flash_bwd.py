@@ -9,7 +9,9 @@ sources into its ``build/``), on a machine with a CUDA card:
 
 To compare two trees, run it from each root in one session, in the order
 parent, change, change, parent.  Prints one JSON line: the tree, the
-shape, the max error against the plain version and three timings in ms.
+shape, the max error against the plain version, three timings in ms and,
+where the tree's ``chip_smoke.py`` has ``flash_bwd_kernel_times``, each
+kernel's time alone.
 """
 
 import json
@@ -35,8 +37,11 @@ def main() -> None:
     ms = [smoke.time_ms(
         lambda *a: smoke.flash_ops.flash_attention_bwd(*a, **kw), [args], 5)
         for _ in range(3)]
+    # each kernel alone, where the tree's chip_smoke has the timer
+    kernels = getattr(smoke, "flash_bwd_kernel_times", None)
     print(json.dumps({"tree": os.getcwd(), "shape": shape,
-                      "max_abs_err": err, "ms": ms}))
+                      "max_abs_err": err, "ms": ms,
+                      "kernels_ms": kernels(args, kw) if kernels else None}))
 
 
 if __name__ == "__main__":
