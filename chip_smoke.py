@@ -14,16 +14,21 @@ Phases (each raises on failure, so any failed check exits non-zero):
                 bound; decode also at batches 1 and 2 of its serving caches;
                 the bf16 SSD op (three kernels) as a whole and each of its
                 kernels alone
-  4. model    - yi-9b and mamba2-2.7b at full width, 2 layers, fp32:
-                prefill + 2 decode steps through the kernels, against the
-                plain CPU path on the same weights
+  4. model    - yi-9b, mamba2-2.7b, gemma2-27b (one local / global
+                cycle), starcoder2-15b, chameleon-34b and whisper-small (2
+                encoder layers, seeded frames) at full width, 2 layers,
+                fp32: prefill + 2 decode steps through the kernels, against
+                the plain CPU path on the same weights; and gemma2-27b on
+                the card alone: a 4,200-token prompt (the window bites, the
+                ring wraps) and 2 decode steps against teacher forcing
   5. serve    - yi-9b, then mamba2-2.7b, at full width and depth (bf16,
                 random weights from a seeded generator on the card): the
                 median of three prefills and each kernel's share of it, 4
                 requests through ServeEngine, counting the kernel launches
                 of prefill, of the whole generate run and of a teacher-forced
-                forward pass; for mamba2-2.7b one prefill under
-                torch.profiler (the ten device ops that take the most time)
+                forward pass; for mamba2-2.7b one prefill and one decode
+                step under torch.profiler (the ten device ops that take the
+                most time)
   6. lake     - the yi-9b of phase 5 saved as a Hudi checkpoint table
                 (LocalFS, in a temporary directory), synced to Iceberg and
                 Delta by the port's XTable core, restored through the
@@ -41,6 +46,18 @@ Phases (each raises on failure, so any failed check exits non-zero):
                 with every tensor and the loader row equal, and its step 4
                 loss equals A's; A's step 4 runs under torch.profiler
                 (device time by class of kernel, the optimizer's span)
+  8. gemma2   - gemma2-27b at full width and depth (46 layers, bf16): the
+                kernels at its shapes (flash for a local and a global
+                layer, decode for both caches; softcap 50) beside their
+                bounds and flex_attention, then 4 requests of 5120 / 4096 /
+                3072 / 2048 tokens (cache 6144) served as in phase 5, with
+                46 flash launches a prefill and 46 decode a step
+  9. whisper  - whisper-small at full width and depth (12 + 12 layers, 1500
+                frames, bf16): prefill, greedy decode and teacher forcing
+                with seeded frames, one ServeEngine.generate with zero
+                frames, 36 flash launches a prefill and 24 decode a step,
+                the fp32 decode against teacher forcing, and the kernels at
+                its shapes
 Phase 3 also holds the flash-attention backward kernel against its plain
 version (autograd through the forward's) and times it at the training
 shape, whole and each of its three kernels alone; phase 4 also holds every
@@ -114,16 +131,23 @@ FLASH_SWEEP = [
     (1, 65, 129, 4, 1, 64, True, 0, 0.0),
     (1, 200, 200, 4, 2, 128, True, 70, 0.0),
     (2, 192, 192, 16, 2, 128, True, 0, 0.0),
+    # gemma2's window and softcap where the window bites at its length;
+    # whisper's encoder rows (1500: no multiple of any tile), non-causal
+    (1, 5120, 5120, 4, 2, 128, True, 4096, 50.0),
+    (1, 1500, 1500, 4, 4, 64, False, 0, 0.0),
 ]
 FLASH_RAGGED = (1, 300, 300, 4, 1, 128, True, 0, 0.0)
-# (b, S, h, kv, dh, window)
+# (b, S, h, kv, dh, window, softcap)
 DECODE_SWEEP = [
-    (2, 512, 4, 2, 64, 0),
-    (2, 512, 4, 4, 128, 128),
-    (1, 300, 8, 2, 64, 0),
-    (3, 256, 16, 2, 128, 64),
-    (2, 300, 32, 2, 128, 0),      # 16 query heads per kv head
-    (2, 4100, 32, 4, 128, 0),     # S not a multiple of the tile
+    (2, 512, 4, 2, 64, 0, 0.0),
+    (2, 512, 4, 4, 128, 128, 0.0),
+    (1, 300, 8, 2, 64, 0, 0.0),
+    (3, 256, 16, 2, 128, 64, 0.0),
+    (2, 300, 32, 2, 128, 0, 0.0),      # 16 query heads per kv head
+    (2, 4100, 32, 4, 128, 0, 0.0),     # S not a multiple of the tile
+    # softcaps (gemma2: 50) at dh 128 with a window and at dh 64 without
+    (2, 512, 4, 4, 128, 128, 50.0),
+    (1, 300, 8, 2, 64, 0, 30.0),
 ]
 # (b, s, h, p, g, n, chunk): the Pallas sweep of tests/test_kernels.py
 SSD_SWEEP = [
@@ -149,6 +173,11 @@ FLASH_MAIN = (SERVE_B, max(SERVE_PROMPTS), max(SERVE_PROMPTS), 32, 4, 128,
               True, 0, 0.0)
 # the training shape of phase 7: yi-9b at full width, cut to 4 layers
 TRAIN_LAYERS, TRAIN_B, TRAIN_S = 4, 4, 2048
+# phase 8's traffic: gemma2-27b's local layers' window bites in prefill and
+# their 4096-slot ring wraps in decode
+GEMMA_PROMPTS, GEMMA_NEW, GEMMA_CACHE = (5120, 4096, 3072, 2048), 32, 6144
+# phase 9's traffic: whisper-small over 1500 frames
+WHISPER_PROMPTS, WHISPER_NEW, WHISPER_CACHE = (32, 24, 16, 8), 64, 128
 # the counted wrappers, by kernel name
 KERNELS = {"flash_attention": flash_ops.flash_attention,
            "decode_attention": decode_ops.decode_attention,
@@ -437,7 +466,7 @@ def phase_flash_bwd(gen, main_shape) -> dict:
 
 
 def _decode_inputs(gen, shape, dtype, lengths):
-    b, S, h, kv, dh, _ = shape
+    b, S, h, kv, dh = shape[:5]
     dev = torch.device("cuda")
     q = torch.randn((b, h, dh), generator=gen, device=dev).to(dtype)
     k = torch.randn((b, S, kv, dh), generator=gen, device=dev).to(dtype)
@@ -448,14 +477,15 @@ def _decode_inputs(gen, shape, dtype, lengths):
 def phase_decode(gen, rng, main_shape, main_lengths) -> dict:
     for dtype in (torch.float32, torch.bfloat16):
         for shape in DECODE_SWEEP:
-            b, S, _, _, _, window = shape
+            b, S, _, _, _, window, softcap = shape
             lengths = rng.integers(max(window, 8), S, b)
             if dtype == torch.float32:
                 lengths[0] = 0              # an empty sequence gets 0
             q, k, v, lens = _decode_inputs(gen, shape, dtype, lengths)
-            out = decode_ops.decode_attention(q, k, v, lens, window=window)
+            kw = dict(window=window, softcap=softcap)
+            out = decode_ops.decode_attention(q, k, v, lens, **kw)
             torch.cuda.synchronize()
-            ref = decode_attention_ref(q, k, v, lens, window=window)
+            ref = decode_attention_ref(q, k, v, lens, **kw)
             err = max_err(out, ref)
             log(f"  decode {shape} {str(dtype)[6:]} lengths "
                 f"{lengths.tolist()}: max_abs_err {err:.3g}")
@@ -463,7 +493,7 @@ def phase_decode(gen, rng, main_shape, main_lengths) -> dict:
                 raise AssertionError(f"decode_attention {shape} {dtype}: "
                                      f"err {err} > {TOL[dtype]}")
     dtype = torch.bfloat16
-    b, S, h, kv, dh, window = main_shape
+    b, S, h, kv, dh, window, softcap = main_shape
     # distinct caches, > 50 MB together: each launch finds its cache cold in
     # L2, as each layer's cache is on the serving path
     sets = [_decode_inputs(gen, main_shape, dtype, main_lengths)
@@ -620,32 +650,63 @@ def phase_ssd(gen, main_shape) -> dict:
 
 
 def _layer_kinds(cfg) -> tuple:
-    """(attention layers, SSM layers) of ``cfg``."""
-    n_attn = sum(spec.kind == "attn" for spec in cfg.layer_specs())
-    return n_attn, cfg.n_layers - n_attn
+    """(flash launches of a prefill or forward pass, decode launches of a
+    decode step, SSM layers) of ``cfg``: one flash launch per self-attention
+    layer, cross-attention layer and encoder layer; one decode launch per
+    self- and cross-attention layer."""
+    specs = cfg.layer_specs()
+    n_self = sum(spec.kind == "attn" for spec in specs)
+    n_cross = sum(spec.cross_attn for spec in specs)
+    n_enc = cfg.encoder.n_layers if cfg.encoder else 0
+    return n_self + n_cross + n_enc, n_self + n_cross, cfg.n_layers - n_self
 
 
-def phase_model(arch: str, seed: int, s: int) -> None:
+def _frames(cfg, b: int, seed: int):
+    """Seeded random frame embeddings (b, frames, d_model) fp32 on the host
+    for an encoder config (whisper), else None."""
+    if not cfg.encoder:
+        return None
+    return torch.from_numpy(np.random.default_rng(seed).standard_normal(
+        (b, cfg.encoder.n_frames, cfg.d_model)).astype(np.float32))
+
+
+def _enc_kw(enc, device, dtype=torch.float32) -> dict:
+    return {} if enc is None else {"enc_embeds": enc.to(device, dtype)}
+
+
+def phase_model(arch: str, seed: int, s: int, fan_in_std: bool = False) -> None:
     """Full width, 2 layers, fp32: kernels on the card vs the plain CPU path.
+    An encoder config (whisper) takes 2 encoder layers and seeded random
+    frame embeddings.  ``fan_in_std`` draws the block weights at std
+    1/sqrt(fan-in) (``well_conditioned``): at whisper-small's 2 layers the
+    init's std 1/sqrt(2) gives encoder attention scores of std ~380, where
+    fp32 on the CPU is itself 5.1e-3 from float64 (ROADMAP C-k,
+    ``tools/logits_fp64.py``).
 
     Tolerance 2e-3 on the logits, the reference's own tolerance between two
     attention paths (tests/test_models.py): both sides are fp32 (TF32 off),
     and only the order of the sums differs (cuBLAS and the kernels' tiling
     against the CPU's BLAS and plain attention / chunked SSD)."""
     cfg = replace(get_config(arch), n_layers=2, dtype="float32")
+    if cfg.encoder:
+        cfg = replace(cfg, encoder=replace(cfg.encoder, n_layers=2))
     tol = 2e-3
     cpu = Model(cfg, device="cpu")
     card = Model(cfg)
-    p_cpu = init_params(cpu.param_template(),
+    tpl = cpu.param_template()
+    p_cpu = init_params(well_conditioned(tpl) if fan_in_std else tpl,
                         torch.Generator().manual_seed(seed), device="cpu")
     p_card = _to(p_cpu, card.device)
     rng = np.random.default_rng(seed)
     b = 2
     toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (b, s + 2)))
+    enc = _frames(cfg, b, seed + 1)
     zero_counts()
     errs = []
-    l_cpu, c_cpu = cpu.prefill(p_cpu, toks[:, :s], cache_len=s + 8)
-    l_card, c_card = card.prefill(p_card, toks[:, :s].cuda(), cache_len=s + 8)
+    l_cpu, c_cpu = cpu.prefill(p_cpu, toks[:, :s], cache_len=s + 8,
+                               **_enc_kw(enc, "cpu"))
+    l_card, c_card = card.prefill(p_card, toks[:, :s].cuda(), cache_len=s + 8,
+                                  **_enc_kw(enc, "cuda"))
     errs.append(max_err(l_card.cpu(), l_cpu))
     for t in range(s, s + 2):
         pos = torch.full((b,), t)
@@ -655,8 +716,8 @@ def phase_model(arch: str, seed: int, s: int) -> None:
         errs.append(max_err(l_card.cpu(), l_cpu))
     torch.cuda.synchronize()
     launches = counts()
-    n_attn, n_ssm = _layer_kinds(cfg)
-    want = {"flash_attention": n_attn, "decode_attention": 2 * n_attn,
+    n_flash, n_decode, n_ssm = _layer_kinds(cfg)
+    want = {"flash_attention": n_flash, "decode_attention": 2 * n_decode,
             "ssd_chunk_scan": n_ssm, "flash_attention_bwd": 0}
     log(f"  model {arch} width {cfg.d_model}, 2 layers, fp32, b={b}, "
         f"prompt {s}: logits max_abs_err prefill {errs[0]:.3g}, decode "
@@ -734,24 +795,67 @@ def phase_model_grads(seed: int, s: int = 128) -> None:
         raise AssertionError(f"train step launches {launches}, want {want}")
 
 
+def phase_window_fp32(seed: int, s: int = 4200, steps: int = 2) -> None:
+    """gemma2-27b at full width, 2 layers (one local / global cycle), fp32,
+    on the card alone (the CPU would take minutes): prefill of a
+    ``s``-token prompt, whose local layer's window bites in the flash kernel
+    and whose 4096-slot ring wraps, then ``steps`` decode steps, against the
+    teacher-forced forward pass over the same tokens, at 2e-3."""
+    cfg = replace(get_config("gemma2-27b"), n_layers=2, dtype="float32")
+    tol = 2e-3
+    model = Model(cfg)
+    params = init_params(model.param_template(),
+                         torch.Generator(device="cuda").manual_seed(seed))
+    b = 2
+    toks = torch.from_numpy(np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, (b, s + steps))).cuda()
+    zero_counts()
+    logits, cache = model.prefill(params, toks[:, :s], cache_len=s + steps)
+    dec = [logits]
+    for t in range(s, s + steps):
+        logits, cache = model.decode_step(params, cache, toks[:, t],
+                                          torch.full((b,), t, device="cuda"))
+        dec.append(logits)
+    full, _ = model.forward(params, toks)
+    torch.cuda.synchronize()
+    launches = counts()
+    errs = [max_err(d, full[:, s - 1 + i]) for i, d in enumerate(dec)]
+    want = {"flash_attention": 2 * cfg.n_layers,
+            "decode_attention": steps * cfg.n_layers, "ssd_chunk_scan": 0,
+            "flash_attention_bwd": 0}
+    log(f"  window check gemma2-27b width {cfg.d_model}, 2 layers, fp32, "
+        f"b={b}, prompt {s} (window {cfg.cycle[0].window}, ring "
+        f"{cache['s0']['k'].shape[2]} slots): prefill and decode vs teacher "
+        f"forcing max_abs_err {[f'{e:.3g}' for e in errs]} (tol {tol}, "
+        f"logits std {float(full[:, s - 1:].std()):.4g}); launches {launches}")
+    if not max(errs) <= tol:
+        raise AssertionError(f"gemma2 window check: {errs} > {tol}")
+    if launches != want:
+        raise AssertionError(f"gemma2 window check launches {launches}, "
+                             f"want {want}")
+
+
 def _to(tree, device):
     if isinstance(tree, dict):
         return {k: _to(v, device) for k, v in tree.items()}
     return tree.to(device)
 
 
-def decode_vs_forward_fp32(cfg, params, toks, steps: int = 8) -> dict:
+def decode_vs_forward_fp32(cfg, params, toks, steps: int = 8,
+                           enc=None) -> dict:
     """Greedy decode from the prefill cache against the teacher-forced
     forward pass over the same tokens, at full depth in fp32 (the served
-    bf16 weights, widened).  In bf16 the two paths round at different places
-    (the SSD kernel returns y in bf16 before the skip term is added, the
-    decode step adds it in fp32), and many layers of random weights amplify
-    that; in fp32 only the order of the sums differs."""
+    bf16 weights, widened; ``enc``: an encoder config's frame embeddings).
+    In bf16 the two paths round at different places (the SSD kernel returns
+    y in bf16 before the skip term is added, the decode step adds it in
+    fp32), and many layers of random weights amplify that; in fp32 only the
+    order of the sums differs."""
     model = Model(replace(cfg, dtype="float32"))
     p32 = tree_map(lambda t: t.float(), params)
     b, s = toks.shape
+    kw = _enc_kw(enc, "cuda")
     zero_counts()
-    logits, cache = model.prefill(p32, toks)
+    logits, cache = model.prefill(p32, toks, cache_len=s + steps, **kw)
     dec = [logits]
     for i in range(steps - 1):
         tok = torch.argmax(dec[-1], -1)
@@ -760,7 +864,7 @@ def decode_vs_forward_fp32(cfg, params, toks, steps: int = 8) -> dict:
         dec.append(logits)
     dec = torch.stack(dec, 1)                                 # (b, steps, V)
     gen = torch.argmax(dec[:, :-1], -1)
-    full, _ = model.forward(p32, torch.cat([toks, gen], 1))
+    full, _ = model.forward(p32, torch.cat([toks, gen], 1), **kw)
     ref = full[:, s - 1:]
     torch.cuda.synchronize()
     out = dict(fp32_decode_vs_forward_max_abs_diff=max_err(dec, ref),
@@ -815,12 +919,12 @@ def _profile_summary(events, wall_ms: float) -> dict:
                        for e in top])
 
 
-def profile_prefill(model, params, toks) -> dict:
+def profile_prefill(model, params, toks, cache_len: int) -> dict:
     """One prefill under ``torch.profiler``: the device's busy time against
     the wall time, and the ten device ops (kernels and copies) that take the
     most of it.  Raises if the profiler records no device time."""
     _, events, wall_ms = device_profile(
-        lambda: model.prefill(params, toks, cache_len=SERVE_CACHE))
+        lambda: model.prefill(params, toks, cache_len=cache_len))
     out = _profile_summary(events, wall_ms)
     log("  profile of one prefill: " + json.dumps(out))
     return out
@@ -873,17 +977,20 @@ def profile_train_step(step_fn, params, opt_state, batch) -> tuple:
     return out, split
 
 
-def phase_serve(arch: str, seed: int, kernel_ms: dict, *, min_agreement=0.5,
-                fp32_check: bool = False, profile: bool = False,
-                keep: dict | None = None) -> dict:
-    """Serve 4 requests at full width and depth in bf16.  Greedy decode must
-    agree with teacher forcing on ``min_agreement`` of the tokens (None:
-    reported only); ``fp32_check`` adds ``decode_vs_forward_fp32``.
-    ``kernel_ms`` (phase 3's times by kernel) gives each kernel's share of
-    prefill: launches x time / prefill seconds.  ``profile`` adds one
-    prefill under ``torch.profiler`` (``profile_prefill``), after the timed
-    runs.  ``keep`` receives the model, its weights, the requests and the
-    served tokens, for phase 6."""
+def phase_serve(arch: str, seed: int, kernel_ms: dict, *,
+                prompts=SERVE_PROMPTS, new: int = SERVE_NEW,
+                cache_len: int = SERVE_CACHE, min_agreement=0.5, fp32_check: bool = False,
+                profile: bool = False, keep: dict | None = None) -> dict:
+    """Serve one request per prompt length in ``prompts``, ``new`` tokens
+    each, at full width and depth in bf16.  Greedy decode must agree with
+    teacher forcing on ``min_agreement`` of the tokens (None: reported
+    only); the teacher-forced forward runs as many requests at a time as
+    keep its fp32 logits within 8 GB (gemma2: one).  ``fp32_check`` adds
+    ``decode_vs_forward_fp32``.  ``kernel_ms`` (kernel times by name) gives
+    each kernel's share of prefill: launches x time / prefill seconds.
+    ``profile`` adds one prefill (``profile_prefill``) and one decode step
+    under ``torch.profiler``, after the timed runs.  ``keep`` receives the
+    model, its weights, the requests and the served tokens, for phase 6."""
     cfg = get_config(arch)
     model = Model(cfg)
     t0 = time.perf_counter()
@@ -894,26 +1001,26 @@ def phase_serve(arch: str, seed: int, kernel_ms: dict, *, min_agreement=0.5,
         f"bf16, {cfg.n_layers} layers, init {time.perf_counter() - t0:.1f} s")
     rng = np.random.default_rng(seed)
     prompts = [rng.integers(0, cfg.vocab_size - 1, n).tolist()
-               for n in SERVE_PROMPTS]
-    reqs = [Request(p, SERVE_NEW) for p in prompts]
-    engine = ServeEngine(model, params, cache_len=SERVE_CACHE)
-    n_attn, n_ssm = _layer_kinds(cfg)
-    decode_steps = SERVE_NEW - 1
+               for n in prompts]
+    reqs = [Request(p, new) for p in prompts]
+    engine = ServeEngine(model, params, cache_len=cache_len)
+    n_flash, n_decode, n_ssm = _layer_kinds(cfg)
+    decode_steps = new - 1
+    b, s = len(prompts), max(len(p) for p in prompts)
 
     # prefills of the same batch: the median time of three, the launches of
     # one and the greedy token
-    toks = np.full((SERVE_B, max(SERVE_PROMPTS)), cfg.vocab_size - 1, np.int64)
+    toks = np.full((b, s), cfg.vocab_size - 1, np.int64)
     for i, p in enumerate(prompts):
         toks[i, -len(p):] = p
     toks = torch.from_numpy(toks).cuda()
     times = []
     for _ in range(3):
-        first_logits = warm_cache = None
+        first_logits = None
         zero_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        first_logits, warm_cache = model.prefill(params, toks,
-                                                 cache_len=SERVE_CACHE)
+        first_logits, _ = model.prefill(params, toks, cache_len=cache_len)
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
         prefill_launches = counts()
@@ -932,26 +1039,27 @@ def phase_serve(arch: str, seed: int, kernel_ms: dict, *, min_agreement=0.5,
     decode_s = total_s - prefill_s
     shares = {name: prefill_launches[name] * kernel_ms[name] / 1e3 / prefill_s
               for name in kernel_ms if prefill_launches.get(name)}
-    stats = dict(prefill_s=prefill_s, prefill_runs_s=times,
-                 generate_s=total_s,
-                 decode_tok_per_s=SERVE_B * decode_steps / decode_s,
+    stats = dict(prompts=[len(p) for p in prompts], new_tokens=new,
+                 cache_len=cache_len, prefill_s=prefill_s,
+                 prefill_runs_s=times, generate_s=total_s,
+                 decode_tok_per_s=b * decode_steps / decode_s,
                  decode_step_ms=decode_s / decode_steps * 1e3,
-                 prefill_tok_per_s=SERVE_B * max(SERVE_PROMPTS) / prefill_s,
+                 prefill_tok_per_s=b * s / prefill_s,
                  peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
                  prefill_launches=prefill_launches,
                  prefill_kernel_share=shares, launches=launches)
     log(f"  serve {arch}: " + json.dumps(stats))
 
-    if [len(o) for o in outs] != [SERVE_NEW] * SERVE_B:
+    if [len(o) for o in outs] != [new] * b:
         raise AssertionError(f"serve: token counts {[len(o) for o in outs]}")
     if not all(0 <= t < cfg.vocab_size for o in outs for t in o):
         raise AssertionError("serve: token id out of range")
     if [o[0] for o in outs] != first:
         raise AssertionError(f"serve: first tokens {[o[0] for o in outs]} "
                              f"!= greedy prefill tokens {first}")
-    want_prefill = {"flash_attention": n_attn, "decode_attention": 0,
+    want_prefill = {"flash_attention": n_flash, "decode_attention": 0,
                     "ssd_chunk_scan": n_ssm, "flash_attention_bwd": 0}
-    want = dict(want_prefill, decode_attention=n_attn * decode_steps)
+    want = dict(want_prefill, decode_attention=n_decode * decode_steps)
     if prefill_launches != want_prefill:
         raise AssertionError(f"serve: prefill launches {prefill_launches}, "
                              f"want {want_prefill}")
@@ -961,33 +1069,42 @@ def phase_serve(arch: str, seed: int, kernel_ms: dict, *, min_agreement=0.5,
     # teacher forcing over prompt + generated tokens: greedy decode should
     # pick the argmax of the full forward pass at each position
     gen = torch.tensor([o[:-1] for o in outs], device="cuda")
+    seq = torch.cat([toks, gen], 1)
+    rows = max(1, min(b, int(8e9 // (seq.shape[1] * cfg.vocab_size * 4))))
     zero_counts()
-    full, _ = model.forward(params, torch.cat([toks, gen], 1))
+    tf = []
+    for i in range(0, b, rows):
+        full, _ = model.forward(params, seq[i:i + rows])
+        tf.append(full[:, s - 1:].clone())
+        del full
+    tf = torch.cat(tf)                                   # (b, new, V)
     torch.cuda.synchronize()
     tf_launches = counts()
-    if tf_launches != want_prefill:
+    want_tf = {k: v * (-(-b // rows)) for k, v in want_prefill.items()}
+    if tf_launches != want_tf:
         raise AssertionError(f"serve: teacher-forced forward launches "
-                             f"{tf_launches}, want {want_prefill}")
-    s = toks.shape[1]
-    tf = torch.argmax(full[:, s - 1:], -1).cpu()
-    agree = float((tf == torch.tensor(outs)).float().mean())
-    log(f"  serve: teacher-forced forward over {full.shape[1]} tokens, "
-        f"launches {tf_launches}; decode vs teacher-forcing greedy agreement "
-        f"{agree:.4f}")
+                             f"{tf_launches}, want {want_tf}")
+    agree = float((torch.argmax(tf, -1).cpu() == torch.tensor(outs))
+                  .float().mean())
+    log(f"  serve: teacher-forced forward over {seq.shape[1]} tokens, "
+        f"{rows} rows a pass, launches {tf_launches}; decode vs "
+        f"teacher-forcing greedy agreement {agree:.4f}")
     if min_agreement is not None and not agree >= min_agreement:
         raise AssertionError(f"serve: decode disagrees with teacher forcing "
                              f"({agree})")
     stats["teacher_forcing_agreement"] = agree
 
-    # one decode step, eager (as served) against the same step replayed
-    # from a CUDA graph (device time alone): their gap is host overhead
+    # one decode step from a fresh prefill's cache, eager (as served)
+    # against the same step replayed from a CUDA graph (device time alone):
+    # their gap is host overhead
+    _, warm_cache = model.prefill(params, toks, cache_len=cache_len)
     tok = torch.tensor(first, device="cuda")
-    pos = torch.full((SERVE_B,), s, device="cuda")
+    pos = torch.full((b,), s, device="cuda")
     step = lambda: model.decode_step(params, warm_cache, tok, pos)  # noqa: E731
     step_logits, _ = step()
-    gap = float((step_logits - full[:, s]).abs().max())
+    gap = float((step_logits - tf[:, 1]).abs().max())
     log(f"  serve: bf16 logits, decode step vs teacher forcing at position "
-        f"{s}: max_abs_diff {gap:.4g} (logits std {float(full[:, s].std()):.4g})")
+        f"{s}: max_abs_diff {gap:.4g} (logits std {float(tf[:, 1].std()):.4g})")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(5):
@@ -1000,9 +1117,13 @@ def phase_serve(arch: str, seed: int, kernel_ms: dict, *, min_agreement=0.5,
     log(f"  serve: decode step eager {eager_ms:.2f} ms, device (CUDA graph) "
         f"{graph_ms:.2f} ms, idle share {1.0 - graph_ms / eager_ms:.3f}")
     if profile:                       # after every timed run: the profiler
-        stats["prefill_profile"] = profile_prefill(model, params, toks)
+        stats["prefill_profile"] = profile_prefill(model, params, toks,
+                                                   cache_len)
+        stats["decode_profile"] = _profile_summary(*device_profile(step)[1:])
+        log("  profile of one decode step: "
+            + json.dumps(stats["decode_profile"]))
     if fp32_check:
-        del full, warm_cache, step_logits
+        del tf, warm_cache, step_logits
         torch.cuda.empty_cache()
         stats.update(decode_vs_forward_fp32(cfg, params, toks))
     if keep is not None:
@@ -1329,21 +1450,319 @@ def phase_train(card: str, seed: int) -> dict:
     return stats
 
 
+def flex_library(q, k, v, out, *, causal: bool = True, window: int = 0,
+                 softcap: float = 0.0, lengths=None) -> dict:
+    """Torch's ``flex_attention``, compiled, on the kernel's inputs (q (b,
+    sq, h, dh), k/v (b, sk, kv, dh)): a tanh ``score_mod`` for the softcap
+    and a block mask, causal with the sliding window, or (``lengths``, a
+    decode step) each sequence's valid prefix within the window.  SDPA has
+    no softcap, so this is the one PyTorch call that computes the function:
+    a yardstick the port never calls.  Returns its device time, its largest
+    difference from the kernel's ``out`` and its compile seconds, or why it
+    did not build or run."""
+    try:
+        from torch.nn.attention.flex_attention import (create_block_mask,
+                                                       flex_attention)
+        b, sq = q.shape[:2]
+        sk = k.shape[1]
+
+        def score_mod(score, bi, hi, qi, ki):
+            return torch.tanh(score / softcap) * softcap
+
+        def mask_mod(bi, hi, qi, ki):
+            if lengths is not None:
+                end = lengths[bi]
+                seen = ki < end
+                return seen & (ki >= end - window) if window else seen
+            seen = ki <= qi if causal else ki >= 0
+            return seen & (qi - ki < window) if causal and window else seen
+
+        mask = create_block_mask(mask_mod, b if lengths is not None else None,
+                                 None, sq, sk, device="cuda")
+        fn = torch.compile(flex_attention)
+        args = [tuple(t.transpose(1, 2).contiguous() for t in (q, k, v))]
+
+        def call(*a):
+            return fn(*a, score_mod=score_mod if softcap else None,
+                      block_mask=mask, enable_gqa=True)
+
+        t0 = time.perf_counter()
+        res = call(*args[0])
+        torch.cuda.synchronize()
+        compile_s = time.perf_counter() - t0
+        err = max_err(res.transpose(1, 2), out)
+        return dict(library="flex_attention", library_ms=time_ms(call, args, 5),
+                    library_max_abs_diff=err, library_compile_s=compile_s)
+    except Exception as e:                  # reported, never a failure
+        return dict(library="flex_attention", library_ms=None,
+                    library_error=f"{type(e).__name__}: {e}"[:400])
+
+
+def flash_at(gen, shape, library: str) -> dict:
+    """The bf16 flash kernel at one shape of a served model's prefill:
+    checked against the plain version a sequence at a time (at full batch
+    its fp32 scores take tens of GB at gemma2's shapes), timed in a CUDA
+    graph beside the plain version (eager: two calls) and ``library``
+    ("sdpa", for no softcap; or "flex", ``flex_library``), with the bound
+    from the visible pairs."""
+    b, sq, sk, h, kv, dh, causal, window, softcap = shape
+    dtype = torch.bfloat16
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    q, k, v = _flash_inputs(gen, shape, dtype)
+    out = flash_ops.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    err = 0.0
+    for i in range(b):
+        one = slice(i, i + 1)
+        ref = attention_ref(q[one], k[one], v[one], **kw)
+        err = max(err, max_err(out[one], ref))
+        if not within(out[one], ref, TOL[dtype]):
+            raise AssertionError(f"flash_attention {shape}: err {err}")
+        del ref
+    ms = time_ms(lambda *a: flash_ops.flash_attention(*a, **kw), [(q, k, v)],
+                 10)
+    plain_ms = time_eager_ms(lambda: attention_ref(q, k, v, **kw), 1)
+    torch.cuda.empty_cache()
+    if library == "sdpa":
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        lib = dict(library="sdpa", library_ms=time_ms(
+            lambda *a: F.scaled_dot_product_attention(
+                *a, is_causal=causal, enable_gqa=True), [(qt, kt, vt)], 10))
+    else:
+        lib = flex_library(q, k, v, out, **kw)
+    flops = 4.0 * b * h * dh * _flash_visible_pairs(sq, sk, causal, window)
+    nbytes = sum(t.numel() * t.element_size() for t in (q, k, v, out))
+    bms, by = bound_ms(flops, nbytes, dtype)
+    rec = dict(kernel="flash_attention", shape=list(shape), max_abs_err=err,
+               ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+               flops=flops, bytes=nbytes, achieved_tflops=flops / ms / 1e9,
+               **lib)
+    log("  " + json.dumps(rec))
+    return rec
+
+
+def decode_at(gen, shape, lengths, library: str) -> dict:
+    """The bf16 decode kernel at one shape of a served model's decode step,
+    ``lengths`` as in that step, on distinct caches (>= 100 MB together, so
+    each launch finds its cache cold in L2, as each layer's is when
+    served): checked against the plain version, timed in a CUDA graph
+    beside the plain version and ``library`` ("sdpa" with a prefix mask,
+    for no softcap; or "flex"), with the bound from the rows each sequence
+    sees."""
+    b, S, h, kv, dh, window, softcap = shape
+    dtype = torch.bfloat16
+    kw = dict(window=window, softcap=softcap)
+    n_sets = max(2, min(8, -(-100_000_000 // (4 * b * S * kv * dh))))
+    sets = [_decode_inputs(gen, shape, dtype, lengths) for _ in range(n_sets)]
+    q, k, v, lens = sets[0]
+    out = decode_ops.decode_attention(q, k, v, lens, **kw)
+    torch.cuda.synchronize()
+    ref = decode_attention_ref(q, k, v, lens, **kw)
+    err = max_err(out, ref)
+    if not within(out, ref, TOL[dtype]):
+        raise AssertionError(f"decode_attention {shape}: err {err}")
+    ms = time_ms(lambda *a: decode_ops.decode_attention(*a, **kw), sets, 96)
+    plain_ms = time_ms(lambda *a: decode_attention_ref(*a, **kw), sets, 24)
+    if library == "sdpa":
+        pos = torch.arange(S, device="cuda")
+        lib_sets = [(q.unsqueeze(2), k.transpose(1, 2).contiguous(),
+                     v.transpose(1, 2).contiguous(),
+                     (pos[None, :] < ln[:, None])[:, None, None, :])
+                    for q, k, v, ln in sets]
+        lib = dict(library="sdpa", library_ms=time_ms(
+            lambda q, k, v, m: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=m, enable_gqa=True), lib_sets, 96))
+    else:
+        lib = flex_library(q[:, None], k, v, out[:, None], lengths=lens, **kw)
+    rows = sum(min(int(n), window) if window else int(n) for n in lengths)
+    flops = 4.0 * h * dh * rows
+    nbytes = 2 * rows * kv * dh * 2 + 2 * b * h * dh * 2 + 4 * b
+    bms, by = bound_ms(flops, nbytes, dtype)
+    rec = dict(kernel="decode_attention", shape=list(shape),
+               lengths=[int(n) for n in lengths], max_abs_err=err, ms=ms,
+               plain_ms=plain_ms, bound_ms=bms, bound_by=by, flops=flops,
+               bytes=nbytes, achieved_GBps=nbytes / ms / 1e6, **lib)
+    log("  " + json.dumps(rec))
+    return rec
+
+
+def phase_gemma2(seed: int) -> dict:
+    """gemma2-27b at full width and depth in bf16.  First its kernels at
+    the shapes of this traffic, before the weights take the card's memory:
+    flash for a local (window 4096) and a global layer of the prefill,
+    decode for a local (its ring full) and a global cache at the first
+    decode step, all softcapped; then ``phase_serve`` with the GEMMA_*
+    traffic, with one prefill and one decode step under torch.profiler.
+    The fp32 check of the window and the ring is ``phase_window_fp32``."""
+    cfg = get_config("gemma2-27b")
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    b, s = len(GEMMA_PROMPTS), max(GEMMA_PROMPTS)
+    h, kv, dh, cap = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, \
+        cfg.attn_softcap
+    local = cfg.cycle[0].window
+    kernels = {
+        "flash_local": flash_at(gen, (b, s, s, h, kv, dh, True, local, cap),
+                                "flex"),
+        "flash_global": flash_at(gen, (b, s, s, h, kv, dh, True, 0, cap),
+                                 "flex"),
+        "decode_local": decode_at(gen, (b, local, h, kv, dh, local, cap),
+                                  [local] * b, "flex"),
+        "decode_global": decode_at(gen, (b, GEMMA_CACHE, h, kv, dh, 0, cap),
+                                   [s + 1] * b, "flex")}
+    torch.cuda.empty_cache()
+    # half the layers are local, half global
+    flash_ms = (kernels["flash_local"]["ms"] + kernels["flash_global"]["ms"]) / 2
+    stats = phase_serve("gemma2-27b", seed, {"flash_attention": flash_ms},
+                        prompts=GEMMA_PROMPTS, new=GEMMA_NEW,
+                        cache_len=GEMMA_CACHE, profile=True)
+    stats["kernels"] = kernels
+    return stats
+
+
+def phase_whisper(seed: int) -> dict:
+    """whisper-small at full width and depth (12 encoder and 12 decoder
+    layers, 1500 frames) in bf16: the median of three prefills with seeded
+    random frame embeddings, greedy decode through ``Model.decode_step``
+    against the teacher-forced forward (bf16 agreement reported), one
+    decode step eager and as a CUDA graph, one ``ServeEngine.generate``
+    with the reference engine's zero frames, the launches of each (flash:
+    12 encoder, 12 self, 12 cross a prefill; decode: 12 self and 12 cross a
+    step), the fp32 decode against teacher forcing at full depth, and the
+    kernels at whisper's shapes."""
+    cfg = get_config("whisper-small")
+    model = Model(cfg)
+    params = init_params(model.param_template(),
+                         torch.Generator(device="cuda").manual_seed(seed))
+    b, s, new = len(WHISPER_PROMPTS), max(WHISPER_PROMPTS), WHISPER_NEW
+    rng = np.random.default_rng(seed)
+    prompts = [rng.integers(0, cfg.vocab_size - 1, n).tolist()
+               for n in WHISPER_PROMPTS]
+    toks = np.full((b, s), cfg.vocab_size - 1, np.int64)
+    for i, p in enumerate(prompts):
+        toks[i, -len(p):] = p
+    toks = torch.from_numpy(toks).cuda()
+    enc = _frames(cfg, b, seed).cuda()
+    kw = {"enc_embeds": enc.to(torch.bfloat16)}
+    n_flash, n_decode, _ = _layer_kinds(cfg)
+    want_prefill = {"flash_attention": n_flash, "decode_attention": 0,
+                    "ssd_chunk_scan": 0, "flash_attention_bwd": 0}
+    want_decode = dict(want_prefill, flash_attention=0,
+                       decode_attention=n_decode * (new - 1))
+
+    times = []
+    for _ in range(3):
+        logits = cache = None
+        zero_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = model.prefill(params, toks, cache_len=WHISPER_CACHE,
+                                      **kw)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        prefill_launches = counts()
+    prefill_s = float(np.median(times))
+    zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = [torch.argmax(logits, -1)]
+    for i in range(new - 1):
+        logits, cache = model.decode_step(params, cache, out[-1],
+                                          torch.full((b,), s + i,
+                                                     device="cuda"))
+        out.append(torch.argmax(logits, -1))
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    decode_launches = counts()
+    gen_toks = torch.stack(out, 1)                        # (b, new)
+
+    zero_counts()
+    full, _ = model.forward(params, torch.cat([toks, gen_toks[:, :-1]], 1),
+                            **kw)
+    torch.cuda.synchronize()
+    tf_launches = counts()
+    agree = float((torch.argmax(full[:, s - 1:], -1) == gen_toks)
+                  .float().mean())
+
+    tok, pos = gen_toks[:, -1], torch.full((b,), s + new - 1, device="cuda")
+    step = lambda: model.decode_step(params, cache, tok, pos)  # noqa: E731
+    step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(5):
+        step()
+    torch.cuda.synchronize()
+    eager_ms = (time.perf_counter() - t0) / 5 * 1e3
+    graph_ms = time_ms(step, [()], 5)
+
+    engine = ServeEngine(model, params, cache_len=WHISPER_CACHE)
+    zero_counts()
+    outs = engine.generate([Request(p, new) for p in prompts])
+    torch.cuda.synchronize()
+    engine_launches = counts()
+    stats = dict(encoder_layers=cfg.encoder.n_layers, layers=cfg.n_layers,
+                 frames=cfg.encoder.n_frames, prompts=list(WHISPER_PROMPTS),
+                 new_tokens=new, cache_len=WHISPER_CACHE,
+                 params=count_params(model.param_template()),
+                 prefill_s=prefill_s, prefill_runs_s=times,
+                 prefill_tok_per_s=b * s / prefill_s,
+                 decode_s=decode_s, decode_step_ms=decode_s / (new - 1) * 1e3,
+                 decode_tok_per_s=b * (new - 1) / decode_s,
+                 decode_step_eager_ms=eager_ms,
+                 decode_step_device_ms=graph_ms,
+                 decode_step_idle_share=1.0 - graph_ms / eager_ms,
+                 teacher_forcing_agreement_bf16=agree,
+                 prefill_launches=prefill_launches,
+                 decode_launches=decode_launches, tf_launches=tf_launches,
+                 engine_launches=engine_launches, launches=engine_launches)
+    log("  serve whisper-small: " + json.dumps(stats))
+    for name, got, want in (("prefill", prefill_launches, want_prefill),
+                            ("decode", decode_launches, want_decode),
+                            ("teacher-forced forward", tf_launches,
+                             want_prefill),
+                            ("engine", engine_launches,
+                             dict(want_decode, flash_attention=n_flash))):
+        if got != want:
+            raise AssertionError(f"whisper {name} launches {got}, want "
+                                 f"{want}")
+    if [len(o) for o in outs] != [new] * b or not all(
+            0 <= t < cfg.vocab_size for o in outs for t in o):
+        raise AssertionError(f"whisper engine tokens: {outs}")
+    del full, cache
+    torch.cuda.empty_cache()
+    stats.update(decode_vs_forward_fp32(cfg, params, toks, enc=enc))
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    frames, heads = cfg.encoder.n_frames, (cfg.n_heads, cfg.n_kv_heads,
+                                            cfg.head_dim)
+    stats["kernels"] = {
+        "flash_encoder": flash_at(gen, (b, frames, frames, *heads, False, 0,
+                                        0.0), "sdpa"),
+        "flash_cross": flash_at(gen, (b, s, frames, *heads, False, 0, 0.0),
+                                "sdpa"),
+        "decode_self": decode_at(gen, (b, WHISPER_CACHE, *heads, 0, 0.0),
+                                 [s + 1] * b, "sdpa"),
+        "decode_cross": decode_at(gen, (b, frames, *heads, 0, 0.0),
+                                  [frames] * b, "sdpa")}
+    return stats
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
     t_start = time.perf_counter()
 
-    log("== phase 1: device")
+    def head(title: str) -> None:
+        log(f"== {title} (at {time.perf_counter() - t_start:.1f} s)")
+
+    head("phase 1: device")
     card = phase_device()
-    log("== phase 2: build")
+    head("phase 2: build")
     phase_build()
 
-    log("== phase 3: kernels against their plain versions")
+    head("phase 3: kernels against their plain versions")
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     rng = np.random.default_rng(args.seed)
-    decode_main = (SERVE_B, SERVE_CACHE, 32, 4, 128, 0)
+    decode_main = (SERVE_B, SERVE_CACHE, 32, 4, 128, 0, 0.0)
     main_lengths = rng.integers(max(SERVE_PROMPTS) + 1,
                                 max(SERVE_PROMPTS) + SERVE_NEW, SERVE_B)
     kernels = [phase_flash(gen, FLASH_MAIN),
@@ -1353,21 +1772,27 @@ def main() -> int:
     kernels.append(phase_flash_bwd(gen, FLASH_MAIN))
     torch.cuda.empty_cache()
 
-    log("== phase 4: model, full width, 2 layers, fp32, card vs CPU")
+    head("phase 4: model, full width, 2 layers, fp32, card vs CPU")
     phase_model("yi-9b", args.seed, 128)
     # 300 is not a multiple of the 256-row chunk: the model's pad path
     phase_model("mamba2-2.7b", args.seed, 300)
     phase_model_grads(args.seed)
     torch.cuda.empty_cache()
+    for arch in ("gemma2-27b", "starcoder2-15b", "chameleon-34b"):
+        phase_model(arch, args.seed, 128)
+        torch.cuda.empty_cache()
+    phase_model("whisper-small", args.seed, 128, fan_in_std=True)
+    phase_window_fp32(args.seed)
+    torch.cuda.empty_cache()
 
     # each model's path is read on its own: its serve phase sets the
     # counts to 0 before it runs and reads them after
-    log("== phase 5: serve, yi-9b full width and depth, bf16")
+    head("phase 5: serve, yi-9b full width and depth, bf16")
     kernel_ms = {rec["name"]: rec["ms"] for rec in kernels}
     yi = {}
     stats = {"yi-9b": phase_serve("yi-9b", args.seed, kernel_ms, keep=yi)}
     torch.cuda.empty_cache()
-    log("== phase 5: serve, mamba2-2.7b full width and depth, bf16")
+    head("phase 5: serve, mamba2-2.7b full width and depth, bf16")
     # bf16 decode vs teacher forcing is reported; the paths are held to
     # each other in fp32 (decode_vs_forward_fp32)
     stats["mamba2-2.7b"] = phase_serve("mamba2-2.7b", args.seed, kernel_ms,
@@ -1375,15 +1800,22 @@ def main() -> int:
                                        profile=True)
     torch.cuda.empty_cache()
 
-    log("== phase 6: lake, yi-9b full width and depth saved as Hudi, "
-        "restored through Iceberg and Delta")
+    head("phase 6: lake, yi-9b full width and depth saved as Hudi, "
+         "restored through Iceberg and Delta")
     phase_lake(yi, card, stats["yi-9b"]["launches"])
     del yi
     torch.cuda.empty_cache()
 
-    log(f"== phase 7: train, yi-9b full width, {TRAIN_LAYERS} layers, bf16, "
-        f"from the lake; Hudi checkpoint resumed through Iceberg")
+    head(f"phase 7: train, yi-9b full width, {TRAIN_LAYERS} layers, bf16, "
+         f"from the lake; Hudi checkpoint resumed through Iceberg")
     stats["train"] = phase_train(card, args.seed)
+    torch.cuda.empty_cache()
+
+    head("phase 8: serve, gemma2-27b full width and depth, bf16")
+    stats["gemma2-27b"] = phase_gemma2(args.seed)
+    torch.cuda.empty_cache()
+    head("phase 9: serve, whisper-small full width and depth, bf16")
+    stats["whisper-small"] = phase_whisper(args.seed)
     torch.cuda.empty_cache()
 
     # each kernel's launches on its main path: serving (phase 5) for the

@@ -2,8 +2,10 @@
 
 ``yi-9b`` (slice 1) and ``mamba2-2.7b`` (slice 2) run in the port;
 ``stablelm-3b`` (slice 6) runs its smoke config on the CPU (its head_dim 80
-waits for the kernels, ROADMAP B1w); the other seven archs of the reference
-registry are queued in ROADMAP.md.
+waits for the kernels, ROADMAP B1w); ``gemma2-27b``, ``starcoder2-15b``,
+``chameleon-34b`` and ``whisper-small`` (slice 8) run on both.  The three
+MoE archs of the reference registry are queued in ROADMAP.md.  The order
+is the reference registry's.
 """
 
 from __future__ import annotations
@@ -14,8 +16,12 @@ from dataclasses import replace
 from repro_torch.models.config import ModelConfig
 
 ARCH_MODULES = {
+    "gemma2-27b": "gemma2_27b",
     "stablelm-3b": "stablelm_3b",
     "yi-9b": "yi_9b",
+    "starcoder2-15b": "starcoder2_15b",
+    "chameleon-34b": "chameleon_34b",
+    "whisper-small": "whisper_small",
     "mamba2-2.7b": "mamba2_2_7b",
 }
 

@@ -1,4 +1,5 @@
-"""Decoder model of the port: the attention and SSM cycles of the reference.
+"""The port's model: the attention and SSM cycles of the reference, and its
+encoder-decoder (whisper).
 
 Layers are grouped into a repeating *cycle*; stacked cycle parameters carry
 a leading layer dim, and the reference's ``lax.scan`` over them becomes a
@@ -10,6 +11,13 @@ Python loop over index ``c``.  Entry points:
 * ``prefill``     — forward + KV cache construction
 * ``decode_step`` — one new token against the cache (updated in place)
 
+An encoder config (whisper) runs ``encode`` first in ``forward_hidden``,
+``forward`` and ``prefill``, over the frame embeddings ``enc_embeds``
+(b, frames, d): non-causal attention blocks with RoPE, then the encoder's
+final norm.  Each decoder block then attends to the encoder output in its
+cross part (no RoPE, qk-norm, window or softcap); prefill stores the
+projected ``ck`` / ``cv`` in the cache, and decode reads them there.
+
 The last three run under ``torch.inference_mode``.  In the train pass
 each cycle is rematerialised (``torch.utils.checkpoint``, non-reentrant)
 unless ``cfg.remat == "none"``, as the reference's ``jax.checkpoint`` per
@@ -18,11 +26,12 @@ attention launches twice per layer and its backward once.  Stacked cycle
 parameters are split once per pass with ``unbind``, whose backward stacks
 the per-layer gradients in one pass.
 
-Attention dispatch: on the card, prefill / train attention goes through the
-CUDA flash-attention kernel (with a gradient, ``FlashAttentionFn``: the
-hand-written backward kernel) and decode through the CUDA decode-attention
-kernel (with ``lengths = min(pos + 1, cache size)``); on the CPU both take
-the plain versions in ``layers``, with torch autograd.  The cache is
+Attention dispatch: on the card, prefill / train / encoder attention goes
+through the CUDA flash-attention kernel (with a gradient,
+``FlashAttentionFn``: the hand-written backward kernel) and decode through
+the CUDA decode-attention kernel (with ``lengths = min(pos + 1, cache
+size)``; for cross-attention ``lengths`` = the frame count); on the CPU
+both take the plain versions in ``layers``, with torch autograd.  The cache is
 written in ring order (slot = position % cache size), which matches the
 reference whenever the prompt fits the cache.
 
@@ -47,28 +56,22 @@ from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.models import layers as L
 from repro_torch.models import ssm as S
 from repro_torch.models.config import LayerSpec, ModelConfig
-from repro_torch.models.param import ParamSpec, stack_cycle, tree_map
+from repro_torch.models.param import (ParamSpec, stack_cycle, tree_leaves,
+                                      tree_map)
 
 f32 = torch.float32
 
 
+# the encoder's one-block cycle (reference ``Model.encode``)
+ENCODER_CYCLE = (LayerSpec(kind="attn", causal=False),)
+
+
 def _check_ported(cfg: ModelConfig) -> None:
-    """Raise for the parts of the reference model this slice leaves out."""
-    missing = []
-    if cfg.encoder:
-        missing.append(("the encoder", "A11"))
-    if cfg.qk_norm:
-        missing.append(("qk_norm", "A11"))
-    for spec in cfg.cycle:
-        if spec.moe:
-            missing.append(("the MoE MLP", "A12"))
-        if spec.cross_attn:
-            missing.append(("cross-attention", "A11"))
-    if missing:
-        what, item = missing[0]
+    """Raise for the part of the reference model the port leaves out."""
+    if any(spec.moe for spec in cfg.cycle):
         raise NotImplementedError(
-            f"{cfg.name}: {what} is not ported to repro_torch yet "
-            f"(ROADMAP {item})")
+            f"{cfg.name}: the MoE MLP is not ported to repro_torch yet "
+            f"(ROADMAP A12)")
 
 
 # ------------------------------------------------------------- templates
@@ -103,6 +106,8 @@ def _block_template(cfg: ModelConfig, spec: LayerSpec) -> dict:
         t = {"attn": _attn_template(cfg)}
     else:
         t = {"ssm": {"ln": L.norm_template(cfg), **S.ssm_template(cfg)}}
+    if spec.cross_attn:
+        t["cross"] = _attn_template(cfg)
     if spec.mlp:
         t["mlp"] = _mlp_part_template(cfg, spec)
     return t
@@ -143,6 +148,13 @@ class Model:
             tpl["lm_head"] = ParamSpec((cfg.d_model, cfg.vocab_size),
                                        ("embed", "vocab"), cfg.dtype,
                                        "normal", 0.02)
+        if cfg.encoder:
+            tpl["encoder"] = {
+                "blocks": stack_cycle(
+                    {"s0": _block_template(cfg, ENCODER_CYCLE[0])},
+                    cfg.encoder.n_layers),
+                "final_norm": L.norm_template(cfg),
+            }
         return tpl
 
     def cache_template(self, batch: int, cache_len: int) -> dict:
@@ -150,16 +162,22 @@ class Model:
         per_cycle = {}
         for i, spec in enumerate(cfg.cycle):
             if spec.kind != "attn":
-                per_cycle[f"s{i}"] = S.ssm_cache_template(cfg, batch)
-                continue
-            sc = min(spec.window, cache_len) if spec.window else cache_len
-            kvshape = (batch, sc, cfg.n_kv_heads, cfg.head_dim)
-            kvaxes = ("batch", "kvseq", "kv_heads", "head_dim")
-            per_cycle[f"s{i}"] = {
-                "k": ParamSpec(kvshape, kvaxes, cfg.dtype, "zeros"),
-                "v": ParamSpec(kvshape, kvaxes, cfg.dtype, "zeros"),
-                "kpos": ParamSpec((batch, sc), ("batch", "kvseq"), "int32",
-                                  "neg_ones")}
+                c = S.ssm_cache_template(cfg, batch)
+            else:
+                sc = min(spec.window, cache_len) if spec.window else cache_len
+                kvshape = (batch, sc, cfg.n_kv_heads, cfg.head_dim)
+                kvaxes = ("batch", "kvseq", "kv_heads", "head_dim")
+                c = {"k": ParamSpec(kvshape, kvaxes, cfg.dtype, "zeros"),
+                     "v": ParamSpec(kvshape, kvaxes, cfg.dtype, "zeros"),
+                     "kpos": ParamSpec((batch, sc), ("batch", "kvseq"),
+                                       "int32", "neg_ones")}
+            if spec.cross_attn:
+                xshape = (batch, cfg.encoder.n_frames, cfg.n_kv_heads,
+                          cfg.head_dim)
+                xaxes = ("batch", "frames", "kv_heads", "head_dim")
+                c["ck"] = ParamSpec(xshape, xaxes, cfg.dtype, "zeros")
+                c["cv"] = ParamSpec(xshape, xaxes, cfg.dtype, "zeros")
+            per_cycle[f"s{i}"] = c
         return stack_cycle(per_cycle, cfg.n_cycles)
 
     def _new_cache(self, batch: int, cache_len: int) -> dict:
@@ -169,11 +187,15 @@ class Model:
         return tree_map(alloc, self.cache_template(batch, cache_len))
 
     # ------------------------------------------------------------- blocks
-    def _project_qkv(self, h, p, positions):
+    def _project_qkv(self, h, p, positions, use_rope: bool = True):
         cfg = self.cfg
         q, k, v = _proj(h, p["wq"]), _proj(h, p["wk"]), _proj(h, p["wv"])
-        q = L.rope(q, positions, cfg.rope_theta)
-        k = L.rope(k, positions, cfg.rope_theta)
+        if cfg.qk_norm:
+            q = L.rms_norm(q, p["qn"]["scale"], cfg.norm_eps)
+            k = L.rms_norm(k, p["kn"]["scale"], cfg.norm_eps)
+        if use_rope:
+            q = L.rope(q, positions, cfg.rope_theta)
+            k = L.rope(k, positions, cfg.rope_theta)
         return q, k, v
 
     def _attn_part(self, x, p, spec: LayerSpec, *, mode, cache, pos):
@@ -236,6 +258,37 @@ class Model:
         cache["v"][:, slots] = v[:, s - take:]
         cache["kpos"][:, slots] = positions.to(torch.int32)
 
+    def _cross_part(self, x, p, *, mode, cache, enc_out):
+        """Cross-attention to the encoder output: no RoPE, qk-norm, window
+        or softcap.  ``ck`` / ``cv`` are projected from ``enc_out`` (and
+        written into the cache in prefill) or, in decode, read from the
+        cache.  The template's ``post_ln`` (a config with post-block norms)
+        is not applied, as in the reference."""
+        cfg = self.cfg
+        b, sq, _ = x.shape
+        h = L.apply_norm(x, p["ln"], cfg)
+        q = _proj(h, p["wq"])
+        if mode == "decode":
+            ck, cv = cache["ck"], cache["cv"]
+        else:
+            ck, cv = _proj(enc_out, p["wk"]), _proj(enc_out, p["wv"])
+            if mode == "prefill":
+                cache["ck"].copy_(ck)
+                cache["cv"].copy_(cv)
+        if x.device.type != "cuda":
+            o = L.blocked_attention(q, ck, cv, causal=False,
+                                    q_blocks=cfg.attn_q_blocks)
+        elif mode == "decode":
+            lengths = torch.full((b,), ck.shape[1], dtype=torch.int32,
+                                 device=x.device)
+            o = decode_attention(q[:, 0].contiguous(), ck, cv,
+                                 lengths)[:, None]
+        else:
+            o = flash_attention(q, ck, cv, causal=False)
+        out = (o.reshape(b * sq, -1) @ p["wo"].reshape(-1, cfg.d_model)) \
+            .view(b, sq, cfg.d_model)
+        return x + out
+
     def _mlp_part(self, x, p, spec: LayerSpec):
         cfg = self.cfg
         h = L.apply_norm(x, p["ln"], cfg)
@@ -261,41 +314,58 @@ class Model:
         return x + y
 
     def apply_block(self, x, p, spec: LayerSpec, *, mode, cache=None,
-                    pos=None):
+                    pos=None, enc_out=None):
         if spec.kind == "attn":
             x = self._attn_part(x, p["attn"], spec, mode=mode, cache=cache,
                                 pos=pos)
         else:
             x = self._ssm_part(x, p["ssm"], mode=mode, cache=cache)
+        if spec.cross_attn:
+            x = self._cross_part(x, p["cross"], mode=mode, cache=cache,
+                                 enc_out=enc_out)
         if spec.mlp:
             x = self._mlp_part(x, p["mlp"], spec)
         return x
 
     # -------------------------------------------------------------- stacks
-    def _cycle(self, x, cp, *, mode, cache=None, pos=None):
-        """One cycle of blocks: ``cp`` / ``cache`` hold its layer's
-        parameters / cache views by block key."""
-        for i, spec in enumerate(self.cfg.cycle):
+    def _cycle(self, x, cp, *, mode, cache=None, pos=None, enc_out=None,
+               cycle=None):
+        """One cycle of blocks (``cycle``, the config's by default): ``cp`` /
+        ``cache`` hold its layer's parameters / cache views by block key."""
+        for i, spec in enumerate(cycle or self.cfg.cycle):
             key = f"s{i}"
             x = self.apply_block(x, cp[key], spec, mode=mode,
                                  cache=None if cache is None else cache[key],
-                                 pos=pos)
+                                 pos=pos, enc_out=enc_out)
         return x
 
-    def _run_blocks(self, x, blocks, *, mode, cache=None, pos=None):
+    def _run_blocks(self, x, blocks, *, mode, cache=None, pos=None,
+                    enc_out=None, cycle=None):
+        """The stack of cycles in ``blocks`` (stacked, leading layer dim)."""
         cfg = self.cfg
-        layers = _unstack(blocks, cfg.n_cycles)
+        n = tree_leaves(blocks)[0].shape[0]
+        layers = _unstack(blocks, n)
         remat = mode == "train" and cfg.remat != "none" \
             and torch.is_grad_enabled()
-        for c in range(cfg.n_cycles):
+        for c in range(n):
             if remat:
                 x = checkpoint(self._cycle, x, layers[c], mode=mode,
+                               enc_out=enc_out, cycle=cycle,
                                use_reentrant=False, preserve_rng_state=False)
             else:
                 x = self._cycle(x, layers[c], mode=mode,
                                 cache=None if cache is None else
-                                tree_map(lambda t: t[c], cache), pos=pos)
+                                tree_map(lambda t: t[c], cache), pos=pos,
+                                enc_out=enc_out, cycle=cycle)
         return x
+
+    def encode(self, params, enc_embeds):
+        """The encoder over frame embeddings (b, frames, d): non-causal
+        attention blocks, then the encoder's final norm."""
+        enc = params["encoder"]
+        x = self._run_blocks(enc_embeds, enc["blocks"], mode="encode",
+                             cycle=ENCODER_CYCLE)
+        return L.apply_norm(x, enc["final_norm"], self.cfg)
 
     def head_weights(self, params):
         """(d_model, vocab) output projection."""
@@ -316,7 +386,7 @@ class Model:
         return x
 
     # ------------------------------------------------------------ entries
-    def forward_hidden(self, params, tokens):
+    def forward_hidden(self, params, tokens, enc_embeds=None):
         """The train pass, with autograd: final-norm hidden states
         (b, s, d) and the aux loss (0: no MoE yet); no logits are formed.
         Reference: ``repro/models/model.py::Model.forward_hidden``."""
@@ -326,26 +396,36 @@ class Model:
             raise NotImplementedError(
                 f"{cfg.name}: training SSM blocks on the card needs the SSD "
                 f"backward kernel (ROADMAP B6)")
+        enc_out = self.encode(params, enc_embeds) if self.cfg.encoder \
+            else None
         x = self._embed(params, tokens)
-        x = self._run_blocks(x, params["blocks"], mode="train")
+        x = self._run_blocks(x, params["blocks"], mode="train",
+                             enc_out=enc_out)
         x = L.apply_norm(x, params["final_norm"], cfg)
         return x, torch.zeros((), dtype=f32, device=x.device)
 
     @torch.inference_mode()
-    def forward(self, params, tokens):
+    def forward(self, params, tokens, enc_embeds=None):
         """Teacher-forced pass -> (logits (b,s,V) fp32, aux loss)."""
+        enc_out = self.encode(params, enc_embeds) if self.cfg.encoder \
+            else None
         x = self._embed(params, tokens)
-        x = self._run_blocks(x, params["blocks"], mode="train")
+        x = self._run_blocks(x, params["blocks"], mode="train",
+                             enc_out=enc_out)
         return self._head(x, params), torch.zeros((), dtype=f32,
                                                   device=x.device)
 
     @torch.inference_mode()
-    def prefill(self, params, tokens, cache_len: int | None = None):
+    def prefill(self, params, tokens, cache_len: int | None = None,
+                enc_embeds=None):
         """Build the cache; returns (last-position logits (b,V), cache)."""
         cache_len = cache_len or tokens.shape[1]
         cache = self._new_cache(tokens.shape[0], cache_len)
+        enc_out = self.encode(params, enc_embeds) if self.cfg.encoder \
+            else None
         x = self._embed(params, tokens)
-        x = self._run_blocks(x, params["blocks"], mode="prefill", cache=cache)
+        x = self._run_blocks(x, params["blocks"], mode="prefill", cache=cache,
+                             enc_out=enc_out)
         return self._head(x[:, -1:], params)[:, 0], cache
 
     @torch.inference_mode()

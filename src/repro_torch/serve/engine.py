@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from repro_torch.checkpoint import LSTCheckpointManager
+from repro_torch.device import DTYPES
 from repro_torch.models.model import Model
 
 
@@ -88,7 +89,9 @@ class ServeEngine:
         """Synchronous batched generation (greedy when temperature == 0).
 
         Prompts are left-padded with token ``vocab - 1``, and prefill attends
-        to the pads, as in the reference engine."""
+        to the pads, as in the reference engine.  An encoder config gets
+        zero frame embeddings (b, frames, d_model) in the model's dtype, as
+        in the reference engine (its modality frontend is a stub)."""
         b = len(requests)
         max_prompt = max(len(r.prompt) for r in requests)
         max_new = max(r.max_new for r in requests)
@@ -97,8 +100,14 @@ class ServeEngine:
         for i, r in enumerate(requests):
             toks[i, -len(r.prompt):] = r.prompt      # left-pad
         tokens = torch.from_numpy(toks).to(self.device)
+        cfg = self.model.cfg
+        enc = None
+        if cfg.encoder:
+            enc = torch.zeros((b, cfg.encoder.n_frames, cfg.d_model),
+                              dtype=DTYPES[cfg.dtype], device=self.device)
         logits, cache = self.model.prefill(self.params, tokens,
-                                           cache_len=self.cache_len)
+                                           cache_len=self.cache_len,
+                                           enc_embeds=enc)
         gen = torch.Generator(device=self.device).manual_seed(seed)
         outs = [[] for _ in range(b)]
         pos = torch.full((b,), max_prompt, dtype=torch.int64,

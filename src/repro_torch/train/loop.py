@@ -71,7 +71,8 @@ def make_loss_fn(model: Model, *, ce_chunk: int = 512):
     cfg = model.cfg
 
     def loss_fn(params, batch):
-        hidden, aux = model.forward_hidden(params, batch["inputs"])
+        hidden, aux = model.forward_hidden(
+            params, batch["inputs"], enc_embeds=batch.get("enc_embeds"))
         loss, ce, n = chunked_cross_entropy(
             hidden, model.head_weights(params), batch["targets"],
             final_softcap=cfg.final_softcap, chunk=ce_chunk)

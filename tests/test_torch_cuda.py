@@ -57,15 +57,24 @@ FLASH_SHAPES = [
     (1, 300, 300, 4, 2, 64, True, 150, 30.0),    # dh 64, window and softcap
     (3, 200, 131, 4, 2, 128, False, 0, 0.0),     # b > 1, ragged sk
     (3, 131, 131, 4, 4, 128, True, 0, 0.0),      # b > 1, ragged, causal
+    # whisper's encoder rows (1500: no multiple of any tile), non-causal;
+    # gemma2's window and softcap where the window bites at its length
+    (1, 1500, 1500, 4, 4, 64, False, 0, 0.0),
+    (1, 5120, 5120, 4, 2, 128, True, 4096, 50.0),
 ]
-DECODE_SHAPES = [
-    (2, 512, 4, 2, 64, 0),
-    (2, 512, 4, 4, 128, 128),     # MHA + sliding window
-    (1, 300, 8, 2, 64, 0),        # ragged cache length
-    (3, 256, 16, 2, 128, 64),
-    (2, 300, 24, 2, 128, 0),      # 12 query heads per kv head
-    (2, 300, 32, 2, 128, 0),      # 16 query heads per kv head
-    (2, 4100, 32, 4, 128, 0),     # S not a multiple of the tile, many splits
+DECODE_SHAPES = [                 # (b, S, h, kv, dh, window, softcap)
+    (2, 512, 4, 2, 64, 0, 0.0),
+    (2, 512, 4, 4, 128, 128, 0.0),     # MHA + sliding window
+    (1, 300, 8, 2, 64, 0, 0.0),        # ragged cache length
+    (3, 256, 16, 2, 128, 64, 0.0),
+    (2, 300, 24, 2, 128, 0, 0.0),      # 12 query heads per kv head
+    (2, 300, 32, 2, 128, 0, 0.0),      # 16 query heads per kv head
+    (2, 4100, 32, 4, 128, 0, 0.0),     # S not a multiple of the tile
+    # softcaps (gemma2: 50), windowed and not, at dh 128 and 64; gemma2's
+    # heads (32 q / 16 kv) and window over lengths of 4096-4351
+    (2, 512, 4, 4, 128, 128, 50.0),
+    (1, 300, 8, 2, 64, 0, 30.0),
+    (2, 4352, 32, 16, 128, 4096, 50.0),
 ]
 
 
@@ -104,8 +113,9 @@ def test_flash_kernel_vs_plain_on_card(cuda, b, sq, sk, h, kv, dh, causal,
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("b,S,h,kv,dh,window", DECODE_SHAPES)
-def test_decode_kernel_vs_plain_on_card(cuda, b, S, h, kv, dh, window, dtype):
+@pytest.mark.parametrize("b,S,h,kv,dh,window,softcap", DECODE_SHAPES)
+def test_decode_kernel_vs_plain_on_card(cuda, b, S, h, kv, dh, window,
+                                        softcap, dtype):
     rng = np.random.default_rng(14)
     q = rng.standard_normal((b, h, dh), np.float32)
     k, v = (rng.standard_normal((b, S, kv, dh), np.float32) for _ in "kv")
@@ -114,11 +124,109 @@ def test_decode_kernel_vs_plain_on_card(cuda, b, S, h, kv, dh, window, dtype):
     q, k, v = (torch.from_numpy(a).to(cuda, getattr(torch, dtype))
                for a in (q, k, v))
     lens = torch.from_numpy(lengths).to(cuda)
-    out = decode_ops.decode_attention(q, k, v, lens, window=window)
+    kw = dict(window=window, softcap=softcap)
+    out = decode_ops.decode_attention(q, k, v, lens, **kw)
     torch.cuda.synchronize()
-    ref = decode_attention_ref(q, k, v, lens, window=window)
+    ref = decode_attention_ref(q, k, v, lens, **kw)
     torch.testing.assert_close(out.float(), ref.float(), atol=TOL[dtype],
                                rtol=TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_cross_attention_decode_on_card(cuda, dtype):
+    """whisper's decode-step cross-attention: one query token per head
+    against all 1500 frames of the ``ck`` / ``cv`` cache (12 heads, dh 64,
+    lengths = the frame count), as ``Model._cross_part`` launches it."""
+    rng = np.random.default_rng(15)
+    b, S, h, dh = 4, 1500, 12, 64
+    q = rng.standard_normal((b, h, dh), np.float32)
+    k, v = (rng.standard_normal((b, S, h, dh), np.float32) for _ in "kv")
+    q, k, v = (torch.from_numpy(a).to(cuda, getattr(torch, dtype))
+               for a in (q, k, v))
+    lens = torch.full((b,), S, dtype=torch.int32, device=cuda)
+    before = decode_ops.decode_attention.launches
+    out = decode_ops.decode_attention(q, k, v, lens)
+    torch.cuda.synchronize()
+    assert decode_ops.decode_attention.launches == before + 1
+    ref = decode_attention_ref(q, k, v, lens)
+    torch.testing.assert_close(out.float(), ref.float(), atol=TOL[dtype],
+                               rtol=TOL[dtype])
+
+
+def _card_arch(arch):
+    """The fp32 smoke config at head_dim 64 (the kernels take 64 and 128);
+    gemma2 with a window of 8, whisper with 40 frames."""
+    from dataclasses import replace
+
+    from repro_torch.configs import smoke_config
+    from repro_torch.models.config import EncoderConfig, LayerSpec
+
+    cfg = replace(smoke_config(arch), head_dim=64, dtype="float32")
+    if arch == "gemma2-27b":
+        cfg = replace(cfg, cycle=(LayerSpec(kind="attn", window=8),
+                                  LayerSpec(kind="attn", window=0)))
+    if cfg.encoder:
+        cfg = replace(cfg, encoder=EncoderConfig(n_layers=2, n_frames=40))
+    return cfg
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ("gemma2-27b", "starcoder2-15b",
+                                  "chameleon-34b", "whisper-small"))
+def test_new_archs_on_card_never_take_a_plain_path(cuda, monkeypatch, arch):
+    """Prefill of a 21-token prompt and 4 decode steps on the card with the
+    plain attention versions made to raise, against the CPU on the same
+    weights (2e-3): flash once per attention layer in prefill (whisper:
+    encoder, self and cross), decode once per layer and step (whisper: self
+    and cross); gemma2's 8-slot ring wraps."""
+    from repro_torch.models import layers as L
+    from repro_torch.models.model import Model
+    from repro_torch.models.param import init_params, tree_map
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a CUDA tensor reached a plain path")
+
+    def run(model, params, dev):
+        """Logits of the prefill and of each decode step, on the host."""
+        kw = {} if enc is None else {"enc_embeds": enc.to(dev)}
+        logits, cache = model.prefill(params, toks[:, :s].to(dev),
+                                      cache_len=32, **kw)
+        out = [logits.cpu()]
+        for t in range(s, s + steps):
+            logits, cache = model.decode_step(
+                params, cache, toks[:, t].to(dev),
+                torch.full((b,), t, device=dev))
+            out.append(logits.cpu())
+        return out
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = _card_arch(arch)
+    cpu = Model(cfg, device="cpu")
+    p_cpu = init_params(cpu.param_template(),
+                        torch.Generator().manual_seed(0), device="cpu")
+    rng = np.random.default_rng(16)
+    b, s, steps = 2, 21, 4
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (b, s + steps)))
+    enc = None if not cfg.encoder else torch.from_numpy(rng.standard_normal(
+        (b, cfg.encoder.n_frames, cfg.d_model)).astype(np.float32))
+    want = run(cpu, p_cpu, "cpu")
+    for mod, name in ((flash_ops, "attention_ref"),
+                      (decode_ops, "decode_attention_ref"),
+                      (L, "blocked_attention"), (L, "decode_attention")):
+        monkeypatch.setattr(mod, name, refuse)
+    f0, d0 = flash_ops.flash_attention.launches, \
+        decode_ops.decode_attention.launches
+    got = run(Model(cfg), tree_map(lambda t: t.to(cuda), p_cpu), cuda)
+    n_attn = cfg.n_layers
+    if cfg.encoder:           # encoder, self and cross; self and cross
+        n_flash, per_step = cfg.encoder.n_layers + 2 * n_attn, 2 * n_attn
+    else:
+        n_flash, per_step = n_attn, n_attn
+    assert flash_ops.flash_attention.launches == f0 + n_flash
+    assert decode_ops.decode_attention.launches == d0 + steps * per_step
+    errs = [float((g - w).abs().max()) for g, w in zip(got, want)]
+    assert max(errs) <= 2e-3, errs
 
 
 SSD_TOL = {"float32": 5e-4, "bfloat16": 2e-2}

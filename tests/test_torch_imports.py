@@ -31,8 +31,16 @@ PROBE = textwrap.dedent("""
     assert not bad, bad
     for want in ("repro_torch.data.pipeline", "repro_torch.data.synth",
                  "repro_torch.optim.adamw", "repro_torch.optim.schedule",
-                 "repro_torch.train.loop", "repro_torch.train.trainer"):
+                 "repro_torch.train.loop", "repro_torch.train.trainer",
+                 "repro_torch.configs.gemma2_27b",
+                 "repro_torch.configs.starcoder2_15b",
+                 "repro_torch.configs.chameleon_34b",
+                 "repro_torch.configs.whisper_small"):
         assert want in names, want
+    from repro_torch.configs import get_config
+    for arch in ("gemma2-27b", "starcoder2-15b", "chameleon-34b",
+                 "whisper-small"):
+        assert get_config(arch).name == arch
 """)
 
 
@@ -42,7 +50,7 @@ def test_port_imports_without_jax_or_reference():
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stdout + r.stderr
     n_modules = int(r.stdout.split()[0])
-    assert n_modules >= 69, r.stdout
+    assert n_modules >= 73, r.stdout
 
 
 def test_chip_smoke_imports_neither_jax_nor_reference():
