@@ -13,14 +13,20 @@ Phases (each raises on failure, so any failed check exits non-zero):
                 library call (a yardstick the port never calls), beside the
                 bound; decode also at batches 1 and 2 of its serving caches;
                 the bf16 SSD op (three kernels) as a whole and each of its
-                kernels alone
+                kernels alone; then flash and decode at granite's and
+                jamba's served shapes beside SDPA, and the SSD op at jamba's
+                widths (8192 heads of head_dim 1), its fp32 entry and each
+                bf16 kernel alone
   4. model    - yi-9b, mamba2-2.7b, gemma2-27b (one local / global
                 cycle), starcoder2-15b, chameleon-34b and whisper-small (2
                 encoder layers, seeded frames) at full width, 2 layers,
                 fp32: prefill + 2 decode steps through the kernels, against
                 the plain CPU path on the same weights; and gemma2-27b on
                 the card alone: a 4,200-token prompt (the window bites, the
-                ring wraps) and 2 decode steps against teacher forcing
+                ring wraps) and 2 decode steps against teacher forcing; the
+                MoE archs granite-moe-3b-a800m, dbrx-132b and jamba-v0.1-52b
+                (its blocks 3 and 4: SSM with MoE, attention) likewise, with
+                the router's chosen experts on the card against the CPU's
   5. serve    - yi-9b, then mamba2-2.7b, at full width and depth (bf16,
                 random weights from a seeded generator on the card): the
                 median of three prefills and each kernel's share of it, 4
@@ -58,6 +64,15 @@ Phases (each raises on failure, so any failed check exits non-zero):
                 frames, 36 flash launches a prefill and 24 decode a step,
                 the fp32 decode against teacher forcing, and the kernels at
                 its shapes
+ 10. granite  - granite-moe-3b-a800m at full width and depth (32 layers,
+                40 experts top 8, bf16) served as in phase 5 at the shipped
+                capacity factor (prefill drops tokens): 32 flash launches a
+                prefill, 32 decode a step, the decode step as a CUDA graph,
+                one prefill and one step profiled, and the fp32 decode
+                against teacher forcing at capacity factor 8.0
+ 11. jamba    - jamba-v0.1-52b at full width, 16 of its 32 layers (bf16,
+                ~53 GB) served as in phase 5: 2 flash and 14 SSD launches
+                a prefill, 2 decode a step
 Phase 3 also holds the flash-attention backward kernel against its plain
 version (autograd through the forward's) and times it at the training
 shape, whole and each of its three kernels alone; phase 4 also holds every
@@ -69,6 +84,7 @@ The last two lines are the kernels JSON line and the result line.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import resource
 import shutil
@@ -100,6 +116,7 @@ from repro_torch.kernels.ssd import ops as ssd_ops  # noqa: E402
 from repro_torch.kernels.ssd.ref import ssd_ref  # noqa: E402
 from repro_torch.lst import FORMATS, LocalFS, chunkfile  # noqa: E402
 from repro_torch.lst.catalog import Catalog, TablePointer, ViewRef  # noqa: E402
+from repro_torch.models import layers as L  # noqa: E402
 from repro_torch.models.model import Model  # noqa: E402
 from repro_torch.models.param import (count_params, init_params,  # noqa: E402
                                       tree_leaves, tree_map)
@@ -135,6 +152,12 @@ FLASH_SWEEP = [
     # whisper's encoder rows (1500: no multiple of any tile), non-causal
     (1, 5120, 5120, 4, 2, 128, True, 4096, 50.0),
     (1, 1500, 1500, 4, 4, 64, False, 0, 0.0),
+    # granite's heads (24 q / 8 kv: g 3, dh 64) and dbrx's (48 / 8: g 6,
+    # dh 128), causal with ragged tails and sq < sk
+    (2, 300, 300, 24, 8, 64, True, 0, 0.0),
+    (1, 100, 229, 24, 8, 64, True, 0, 0.0),
+    (2, 200, 200, 48, 8, 128, True, 0, 0.0),
+    (1, 131, 259, 48, 8, 128, True, 0, 0.0),
 ]
 FLASH_RAGGED = (1, 300, 300, 4, 1, 128, True, 0, 0.0)
 # (b, S, h, kv, dh, window, softcap)
@@ -148,6 +171,9 @@ DECODE_SWEEP = [
     # softcaps (gemma2: 50) at dh 128 with a window and at dh 64 without
     (2, 512, 4, 4, 128, 128, 50.0),
     (1, 300, 8, 2, 64, 0, 30.0),
+    # granite's heads (g 3, dh 64) and dbrx's (g 6, dh 128), ragged caches
+    (3, 777, 24, 8, 64, 0, 0.0),
+    (2, 1029, 48, 8, 128, 0, 0.0),
 ]
 # (b, s, h, p, g, n, chunk): the Pallas sweep of tests/test_kernels.py
 SSD_SWEEP = [
@@ -178,6 +204,15 @@ TRAIN_LAYERS, TRAIN_B, TRAIN_S = 4, 4, 2048
 GEMMA_PROMPTS, GEMMA_NEW, GEMMA_CACHE = (5120, 4096, 3072, 2048), 32, 6144
 # phase 9's traffic: whisper-small over 1500 frames
 WHISPER_PROMPTS, WHISPER_NEW, WHISPER_CACHE = (32, 24, 16, 8), 64, 128
+# phase 11: jamba-v0.1-52b at full width, 16 of its 32 layers (two periods
+# of its 8-layer cycle: ~53 GB of bf16 weights; 32 layers would need ~105)
+JAMBA_LAYERS = 16
+# phase 4's cut of jamba's cycle: its blocks 3 (SSM, MoE) and 4 (attention,
+# dense MLP)
+JAMBA_BLOCKS = slice(3, 5)
+# chosen experts on the card and the CPU may differ only at a near-tie: a
+# gap below this between adjacent router probabilities of the first k + 1
+ROUTE_TIE = 1e-5
 # the counted wrappers, by kernel name
 KERNELS = {"flash_attention": flash_ops.flash_attention,
            "decode_attention": decode_ops.decode_attention,
@@ -621,17 +656,13 @@ def phase_ssd(gen, main_shape) -> dict:
                  10)
     plain_ms = time_ms(ssd_ref, [args], 1)
     q = min(chunk, s)
-    nc = s // q
     stages_ms = ssd_kernel_times(args, q)
     plan = ssd_ops.bf16_plan(b, s, h, p, g, n, q)
     layout = dict(grids=plan.grids, smem=plan.smem,
                   scratch_bytes=plan.scratch_bytes)
     log(f"  ssd bf16 serving shape, each kernel alone and all three on one "
         f"set of buffers (ms): " + json.dumps(stages_ms))
-    flops = 2.0 * q * p * (q + 2 * n) * b * h * nc + 2.0 * q * q * n * b * g * nc
-    x, dt, A, B, C = args
-    nbytes = 2 * x.numel() * x.element_size() + sum(
-        t.numel() * t.element_size() for t in (dt, A, B, C)) + b * h * n * p * 4
+    flops, nbytes = ssd_work(args, main_shape)
     bms, by = bound_ms(flops, nbytes, dtype)
     rec = dict(name="ssd_chunk_scan", route="cuda",
                source="src/repro_torch/kernels/ssd/csrc/ssd.cu",
@@ -646,6 +677,52 @@ def phase_ssd(gen, main_shape) -> dict:
                     "achieved_GBps": nbytes / ms / 1e6,
                     "kernels_ms": stages_ms, **layout,
                     "check_launches": ssd_ops.ssd_chunk_scan.launches}))
+    return rec
+
+
+def ssd_work(args, shape) -> tuple:
+    """(FLOPs, bytes) of one SSD call on ``args`` at ``shape``: the
+    intra-chunk and state products; x and y, dt, A, B, C and the final
+    fp32 state, each moved once."""
+    b, s, h, p, g, n, chunk = shape
+    q = min(chunk, s)
+    nc = s // q
+    flops = 2.0 * q * p * (q + 2 * n) * b * h * nc + 2.0 * q * q * n * b * g * nc
+    x = args[0]
+    nbytes = 2 * x.numel() * x.element_size() + sum(
+        t.numel() * t.element_size() for t in args[1:]) + b * h * n * p * 4
+    return flops, nbytes
+
+
+def ssd_at(gen, shape) -> dict:
+    """The SSD op at one served shape (jamba's: 8192 heads of head_dim 1):
+    the bf16 op (three kernels) and the fp32 entry (one kernel) each
+    against the plain version, timed in a CUDA graph beside the plain
+    version, each bf16 kernel alone, and the bound (bytes: x and y in
+    bf16, dt in fp32, B, C and the final state, each once)."""
+    b, s, h, p, g, n, chunk = shape
+    _ssd_check(gen, shape, torch.float32, " (jamba's served shape)")
+    err = _ssd_check(gen, shape, torch.bfloat16, " (jamba's served shape)")
+    args = _ssd_inputs(gen, shape, torch.bfloat16)
+    args32 = tuple(t.float() for t in args)
+    ms = time_ms(lambda *a: ssd_ops.ssd_chunk_scan(*a, chunk=chunk), [args],
+                 10)
+    f32_ms = time_ms(lambda *a: ssd_ops.ssd_chunk_scan(*a, chunk=chunk),
+                     [args32], 5)
+    del args32
+    plain_ms = time_eager_ms(lambda: ssd_ref(*args), 1)
+    q = min(chunk, s)
+    stages_ms = ssd_kernel_times(args, q)
+    plan = ssd_ops.bf16_plan(b, s, h, p, g, n, q)
+    flops, nbytes = ssd_work(args, shape)
+    bms, by = bound_ms(flops, nbytes, torch.bfloat16)
+    rec = dict(kernel="ssd_chunk_scan", shape=list(shape), max_abs_err=err,
+               ms=ms, f32_entry_ms=f32_ms, plain_ms=plain_ms, bound_ms=bms,
+               bound_by=by, flops=flops, bytes=nbytes,
+               achieved_GBps=nbytes / ms / 1e6, kernels_ms=stages_ms,
+               grids=plan.grids, smem=plan.smem,
+               scratch_bytes=plan.scratch_bytes, library_ms=None)
+    log("  " + json.dumps(rec))
     return rec
 
 
@@ -674,20 +751,76 @@ def _enc_kw(enc, device, dtype=torch.float32) -> dict:
     return {} if enc is None else {"enc_embeds": enc.to(device, dtype)}
 
 
-def phase_model(arch: str, seed: int, s: int, fan_in_std: bool = False) -> None:
+@contextlib.contextmanager
+def routing_log():
+    """Every router call of the MoE layers (``layers.route``) while the
+    block runs, by device: {"cpu": [...], "cuda": [...]}, each call's
+    probabilities and chosen experts on the host, in call order."""
+    calls = {"cpu": [], "cuda": []}
+    route = L.route
+
+    def logged(x, router, k):
+        out = route(x, router, k)
+        calls[x.device.type].append((out[1].cpu(), out[3].cpu()))
+        return out
+
+    L.route = logged
+    try:
+        yield calls
+    finally:
+        L.route = route
+
+
+def compare_routing(calls, k: int) -> tuple:
+    """The chosen experts (in order) of each (token, router call) on the
+    card against the CPU's -> (pairs compared, pairs that differ, batch
+    rows holding such a pair).  Raises unless each pair that differs sits
+    at a near-tie: a gap below ROUTE_TIE between two adjacent CPU
+    probabilities among the first k + 1."""
+    cpu, card = calls["cpu"], calls["cuda"]
+    if len(cpu) != len(card) or not cpu:
+        raise AssertionError(f"router calls: {len(cpu)} on the CPU, "
+                             f"{len(card)} on the card")
+    pairs, differ, rows = 0, 0, set()
+    for (probs, e_cpu), (_, e_card) in zip(cpu, card):
+        diff = (e_cpu != e_card).any(-1)                          # (G, S)
+        pairs += diff.numel()
+        if not diff.any():
+            continue
+        top = probs.sort(-1, descending=True).values[..., :k + 1]
+        gap = (top[..., :-1] - top[..., 1:]).min(-1).values
+        if not bool((gap[diff] < ROUTE_TIE).all()):
+            raise AssertionError(f"the card chose other experts than the CPU "
+                                 f"away from a near-tie (gaps "
+                                 f"{gap[diff].tolist()})")
+        differ += int(diff.sum())
+        rows.update(diff.any(-1).nonzero().flatten().tolist())
+    return pairs, differ, rows
+
+
+def phase_model(arch: str, seed: int, s: int, fan_in_std: bool = False,
+                blocks: slice | None = None) -> None:
     """Full width, 2 layers, fp32: kernels on the card vs the plain CPU path.
     An encoder config (whisper) takes 2 encoder layers and seeded random
     frame embeddings.  ``fan_in_std`` draws the block weights at std
     1/sqrt(fan-in) (``well_conditioned``): at whisper-small's 2 layers the
     init's std 1/sqrt(2) gives encoder attention scores of std ~380, where
     fp32 on the CPU is itself 5.1e-3 from float64 (ROADMAP C-k,
-    ``tools/logits_fp64.py``).
+    ``tools/logits_fp64.py``).  ``blocks`` cuts a longer cycle (jamba's 8)
+    to two of its blocks.
 
     Tolerance 2e-3 on the logits, the reference's own tolerance between two
     attention paths (tests/test_models.py): both sides are fp32 (TF32 off),
     and only the order of the sums differs (cuBLAS and the kernels' tiling
-    against the CPU's BLAS and plain attention / chunked SSD)."""
-    cfg = replace(get_config(arch), n_layers=2, dtype="float32")
+    against the CPU's BLAS and plain attention / chunked SSD).  An MoE
+    config runs at its shipped capacity factor (prefill drops tokens), and
+    its chosen experts are compared call by call (``compare_routing``): a
+    batch row where a near-tie chose other experts is left out of the
+    logits comparison, and counted."""
+    cfg = get_config(arch)
+    if blocks is not None:
+        cfg = replace(cfg, cycle=cfg.cycle[blocks])
+    cfg = replace(cfg, n_layers=2, dtype="float32")
     if cfg.encoder:
         cfg = replace(cfg, encoder=replace(cfg.encoder, n_layers=2))
     tol = 2e-3
@@ -702,26 +835,39 @@ def phase_model(arch: str, seed: int, s: int, fan_in_std: bool = False) -> None:
     toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (b, s + 2)))
     enc = _frames(cfg, b, seed + 1)
     zero_counts()
-    errs = []
-    l_cpu, c_cpu = cpu.prefill(p_cpu, toks[:, :s], cache_len=s + 8,
-                               **_enc_kw(enc, "cpu"))
-    l_card, c_card = card.prefill(p_card, toks[:, :s].cuda(), cache_len=s + 8,
-                                  **_enc_kw(enc, "cuda"))
-    errs.append(max_err(l_card.cpu(), l_cpu))
-    for t in range(s, s + 2):
-        pos = torch.full((b,), t)
-        l_cpu, c_cpu = cpu.decode_step(p_cpu, c_cpu, toks[:, t], pos)
-        l_card, c_card = card.decode_step(p_card, c_card, toks[:, t].cuda(),
-                                          pos.cuda())
-        errs.append(max_err(l_card.cpu(), l_cpu))
+    logits = []
+    with routing_log() as calls:
+        l_cpu, c_cpu = cpu.prefill(p_cpu, toks[:, :s], cache_len=s + 8,
+                                   **_enc_kw(enc, "cpu"))
+        l_card, c_card = card.prefill(p_card, toks[:, :s].cuda(),
+                                      cache_len=s + 8, **_enc_kw(enc, "cuda"))
+        logits.append((l_card.cpu(), l_cpu))
+        for t in range(s, s + 2):
+            pos = torch.full((b,), t)
+            l_cpu, c_cpu = cpu.decode_step(p_cpu, c_cpu, toks[:, t], pos)
+            l_card, c_card = card.decode_step(p_card, c_card,
+                                              toks[:, t].cuda(), pos.cuda())
+            logits.append((l_card.cpu(), l_cpu))
     torch.cuda.synchronize()
     launches = counts()
+    routing = ""
+    keep = list(range(b))
+    if cfg.n_experts:
+        pairs, differ, rows = compare_routing(calls, cfg.top_k)
+        keep = [i for i in keep if i not in rows]
+        routing = (f"; routing: {differ} of {pairs} (token, router call) "
+                   f"pairs chose other experts on the card (near-ties), rows "
+                   f"left out {sorted(rows)}")
+        if not keep:
+            raise AssertionError(f"{arch}: every row holds a near-tie")
+    errs = [max_err(lc[keep], lp[keep]) for lc, lp in logits]
     n_flash, n_decode, n_ssm = _layer_kinds(cfg)
     want = {"flash_attention": n_flash, "decode_attention": 2 * n_decode,
             "ssd_chunk_scan": n_ssm, "flash_attention_bwd": 0}
     log(f"  model {arch} width {cfg.d_model}, 2 layers, fp32, b={b}, "
         f"prompt {s}: logits max_abs_err prefill {errs[0]:.3g}, decode "
-        f"{errs[1]:.3g} {errs[2]:.3g} (tol {tol}); launches {launches}")
+        f"{errs[1]:.3g} {errs[2]:.3g} (tol {tol}); launches {launches}"
+        f"{routing}")
     if not max(errs) <= tol:
         raise AssertionError(f"{arch} model logits differ: {errs} > {tol}")
     if launches != want:
@@ -741,13 +887,18 @@ def _loss_and_grads(model, params, batch) -> tuple:
 
 def well_conditioned(tpl):
     """``tpl`` with every stacked block weight drawn at std 1/sqrt(fan-in)
-    (the contracted dims: ``embed`` in, or all but ``embed`` out), where the
-    init's own std 1/sqrt(layers) saturates attention (ROADMAP C-k)."""
+    (the contracted dims: ``embed`` in, or all but ``embed`` out; an
+    expert weight's ``experts`` axis is not one of them), where the init's
+    own std 1/sqrt(layers) saturates attention (ROADMAP C-k).  A leaf with
+    a scale of its own (the router's 0.02) keeps it."""
     def fix(spec):
-        if spec.axes[:1] != ("layers",) or spec.init != "normal":
+        if spec.axes[:1] != ("layers",) or spec.init != "normal" \
+                or spec.scale is not None:
             return spec
-        fan_in = (int(np.prod(spec.shape[1:-1])) if spec.axes[-1] == "embed"
-                  else spec.shape[1])
+        dims = [n for n, a in zip(spec.shape, spec.axes)
+                if a not in ("layers", "experts")]
+        fan_in = (int(np.prod(dims[:-1])) if spec.axes[-1] == "embed"
+                  else dims[0])
         return replace(spec, scale=fan_in ** -0.5)
     return tree_map(fix, tpl)
 
@@ -842,39 +993,57 @@ def _to(tree, device):
 
 
 def decode_vs_forward_fp32(cfg, params, toks, steps: int = 8,
-                           enc=None) -> dict:
+                           enc=None, min_agreement=0.5,
+                           prefix: str = "fp32_") -> dict:
     """Greedy decode from the prefill cache against the teacher-forced
-    forward pass over the same tokens, at full depth in fp32 (the served
-    bf16 weights, widened; ``enc``: an encoder config's frame embeddings).
-    In bf16 the two paths round at different places (the SSD kernel returns
-    y in bf16 before the skip term is added, the decode step adds it in
-    fp32), and many layers of random weights amplify that; in fp32 only the
-    order of the sums differs."""
-    model = Model(replace(cfg, dtype="float32"))
+    forward pass over the same tokens, at full depth in fp32 (``params``
+    widened: the served bf16 weights; ``enc``: an encoder config's frame
+    embeddings).  In bf16 the two paths round at different places (the SSD
+    kernel returns y in bf16 before the skip term is added, the decode step
+    adds it in fp32), and many layers of random weights amplify that; in
+    fp32 only the order of the sums differs.  The agreement of the greedy
+    tokens must reach ``min_agreement`` (None: reported only).  An MoE
+    config runs at capacity factor 8.0, where no token drops
+    (``tests/test_models.py``'s setting): a prefill, a decode step and a
+    teacher-forced pass of other lengths would otherwise drop other tokens;
+    the (decode token, MoE layer) pairs whose chosen experts differ from
+    the teacher-forced pass's are counted."""
+    model = Model(replace(cfg, dtype="float32", capacity_factor=8.0))
     p32 = tree_map(lambda t: t.float(), params)
     b, s = toks.shape
     kw = _enc_kw(enc, "cuda")
     zero_counts()
-    logits, cache = model.prefill(p32, toks, cache_len=s + steps, **kw)
-    dec = [logits]
-    for i in range(steps - 1):
-        tok = torch.argmax(dec[-1], -1)
-        logits, cache = model.decode_step(
-            p32, cache, tok, torch.full((b,), s + i, device="cuda"))
-        dec.append(logits)
-    dec = torch.stack(dec, 1)                                 # (b, steps, V)
-    gen = torch.argmax(dec[:, :-1], -1)
-    full, _ = model.forward(p32, torch.cat([toks, gen], 1), **kw)
+    with routing_log() as calls:
+        logits, cache = model.prefill(p32, toks, cache_len=s + steps, **kw)
+        dec = [logits]
+        for i in range(steps - 1):
+            tok = torch.argmax(dec[-1], -1)
+            logits, cache = model.decode_step(
+                p32, cache, tok, torch.full((b,), s + i, device="cuda"))
+            dec.append(logits)
+        dec = torch.stack(dec, 1)                             # (b, steps, V)
+        gen = torch.argmax(dec[:, :-1], -1)
+        full, _ = model.forward(p32, torch.cat([toks, gen], 1), **kw)
     ref = full[:, s - 1:]
     torch.cuda.synchronize()
-    out = dict(fp32_decode_vs_forward_max_abs_diff=max_err(dec, ref),
-               fp32_logits_std=float(ref.std()),
-               fp32_teacher_forcing_agreement=float(
-                   (torch.argmax(ref, -1) == torch.argmax(dec, -1))
-                   .float().mean()),
-               fp32_launches=counts())
+    out = {f"{prefix}decode_vs_forward_max_abs_diff": max_err(dec, ref),
+           f"{prefix}logits_std": float(ref.std()),
+           f"{prefix}teacher_forcing_agreement": float(
+               (torch.argmax(ref, -1) == torch.argmax(dec, -1))
+               .float().mean()),
+           f"{prefix}launches": counts()}
+    n_moe = sum(spec.moe for spec in cfg.layer_specs())
+    if n_moe:
+        routes = [e for _, e in calls["cuda"]]
+        fwd = routes[-n_moe:]
+        differ = sum(int((routes[n_moe * (i + 1) + m][:, 0]
+                          != fwd[m][:, s + i]).any(-1).sum())
+                     for i in range(steps - 1) for m in range(n_moe))
+        out[f"{prefix}decode_routing_differs"] = [differ,
+                                                  b * (steps - 1) * n_moe]
     log(f"  serve: fp32, {cfg.n_layers} layers: " + json.dumps(out))
-    if not out["fp32_teacher_forcing_agreement"] >= 0.5:
+    agree = out[f"{prefix}teacher_forcing_agreement"]
+    if min_agreement is not None and not agree >= min_agreement:
         raise AssertionError(f"fp32 decode disagrees with teacher forcing: "
                              f"{out}")
     return out
@@ -980,9 +1149,11 @@ def profile_train_step(step_fn, params, opt_state, batch) -> tuple:
 def phase_serve(arch: str, seed: int, kernel_ms: dict, *,
                 prompts=SERVE_PROMPTS, new: int = SERVE_NEW,
                 cache_len: int = SERVE_CACHE, min_agreement=0.5, fp32_check: bool = False,
-                profile: bool = False, keep: dict | None = None) -> dict:
+                profile: bool = False, keep: dict | None = None,
+                layers: int | None = None) -> dict:
     """Serve one request per prompt length in ``prompts``, ``new`` tokens
-    each, at full width and depth in bf16.  Greedy decode must agree with
+    each, at full width and depth (``layers``: cut to that depth) in bf16.
+    The decode step is replayed as a CUDA graph.  Greedy decode must agree with
     teacher forcing on ``min_agreement`` of the tokens (None: reported
     only); the teacher-forced forward runs as many requests at a time as
     keep its fp32 logits within 8 GB (gemma2: one).  ``fp32_check`` adds
@@ -992,6 +1163,8 @@ def phase_serve(arch: str, seed: int, kernel_ms: dict, *,
     under ``torch.profiler``, after the timed runs.  ``keep`` receives the
     model, its weights, the requests and the served tokens, for phase 6."""
     cfg = get_config(arch)
+    if layers is not None:
+        cfg = replace(cfg, n_layers=layers)
     model = Model(cfg)
     t0 = time.perf_counter()
     params = init_params(model.param_template(),
@@ -1125,7 +1298,24 @@ def phase_serve(arch: str, seed: int, kernel_ms: dict, *,
     if fp32_check:
         del tf, warm_cache, step_logits
         torch.cuda.empty_cache()
-        stats.update(decode_vs_forward_fp32(cfg, params, toks))
+        if cfg.n_experts:
+            # at the init's std (ROADMAP C-k) attention saturates, and a
+            # decode step's rounding moves a token's router across a
+            # near-tie; the changed expert changes the token, and the rows
+            # attending to it: reported.  Held: block weights at std
+            # 1/sqrt(fan-in), as phase 4's
+            stats.update(decode_vs_forward_fp32(cfg, params, toks,
+                                                min_agreement=None,
+                                                prefix="fp32_init_std_"))
+            torch.cuda.empty_cache()
+            tpl = well_conditioned(Model(replace(cfg, dtype="float32"))
+                                   .param_template())
+            held = init_params(tpl, torch.Generator(device="cuda")
+                               .manual_seed(seed))
+        else:
+            held = params
+        stats.update(decode_vs_forward_fp32(cfg, held, toks))
+        del held
     if keep is not None:
         keep.update(model=model, params=params, reqs=reqs, outs=outs)
     return stats
@@ -1586,6 +1776,29 @@ def decode_at(gen, shape, lengths, library: str) -> dict:
     return rec
 
 
+def served_kernels(gen) -> dict:
+    """The kernels at the served shapes of phases 10 and 11, before any
+    weights take the card's memory: flash (prefill, b 4 x 2048, causal) and
+    decode (the first decode step's caches, 2049 rows of 4096) at granite's
+    heads (24 q / 8 kv, dh 64) and jamba's (32 / 8, dh 128) beside SDPA,
+    and the SSD op at jamba's widths (``ssd_at``)."""
+    b, s = SERVE_B, max(SERVE_PROMPTS)
+    out = {}
+    for name in ("granite-moe-3b-a800m", "jamba-v0.1-52b"):
+        cfg = get_config(name)
+        heads = (cfg.n_heads, cfg.n_kv_heads, cfg.head_dim)
+        key = name.split("-")[0]
+        out[f"{key}_flash"] = flash_at(gen, (b, s, s, *heads, True, 0, 0.0),
+                                       "sdpa")
+        out[f"{key}_decode"] = decode_at(
+            gen, (b, SERVE_CACHE, *heads, 0, 0.0), [s + 1] * b, "sdpa")
+        torch.cuda.empty_cache()
+    c = get_config("jamba-v0.1-52b").ssm
+    out["jamba_ssd"] = ssd_at(gen, (b, s, c.n_heads, c.head_dim, c.n_groups,
+                                    c.d_state, c.chunk))
+    return out
+
+
 def phase_gemma2(seed: int) -> dict:
     """gemma2-27b at full width and depth in bf16.  First its kernels at
     the shapes of this traffic, before the weights take the card's memory:
@@ -1771,6 +1984,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     kernels.append(phase_flash_bwd(gen, FLASH_MAIN))
     torch.cuda.empty_cache()
+    moe_kernels = served_kernels(gen)
+    torch.cuda.empty_cache()
 
     head("phase 4: model, full width, 2 layers, fp32, card vs CPU")
     phase_model("yi-9b", args.seed, 128)
@@ -1783,6 +1998,15 @@ def main() -> int:
         torch.cuda.empty_cache()
     phase_model("whisper-small", args.seed, 128, fan_in_std=True)
     phase_window_fp32(args.seed)
+    torch.cuda.empty_cache()
+    # the MoE archs, block weights at std 1/sqrt(fan-in) as whisper's;
+    # jamba cut to one SSM block with MoE and its attention block, at a
+    # prompt of 300 (not a multiple of its 16-row chunk: the pad path)
+    for arch, s in (("granite-moe-3b-a800m", 128), ("dbrx-132b", 128)):
+        phase_model(arch, args.seed, s, fan_in_std=True)
+        torch.cuda.empty_cache()
+    phase_model("jamba-v0.1-52b", args.seed, 300, fan_in_std=True,
+                blocks=JAMBA_BLOCKS)
     torch.cuda.empty_cache()
 
     # each model's path is read on its own: its serve phase sets the
@@ -1816,6 +2040,23 @@ def main() -> int:
     torch.cuda.empty_cache()
     head("phase 9: serve, whisper-small full width and depth, bf16")
     stats["whisper-small"] = phase_whisper(args.seed)
+    torch.cuda.empty_cache()
+
+    # the MoE MLP: capacity drops are real at the shipped factor 1.25, so
+    # bf16 greedy agreement with teacher forcing is reported, not held
+    head("phase 10: serve, granite-moe-3b-a800m full width and depth, bf16")
+    stats["granite-moe-3b-a800m"] = phase_serve(
+        "granite-moe-3b-a800m", args.seed,
+        {"flash_attention": moe_kernels["granite_flash"]["ms"]},
+        min_agreement=None, fp32_check=True, profile=True)
+    torch.cuda.empty_cache()
+    head(f"phase 11: serve, jamba-v0.1-52b full width, {JAMBA_LAYERS} "
+         f"layers, bf16")
+    stats["jamba-v0.1-52b"] = phase_serve(
+        "jamba-v0.1-52b", args.seed,
+        {"flash_attention": moe_kernels["jamba_flash"]["ms"],
+         "ssd_chunk_scan": moe_kernels["jamba_ssd"]["ms"]},
+        min_agreement=None, layers=JAMBA_LAYERS)
     torch.cuda.empty_cache()
 
     # each kernel's launches on its main path: serving (phase 5) for the

@@ -3,9 +3,9 @@
 ``yi-9b`` (slice 1) and ``mamba2-2.7b`` (slice 2) run in the port;
 ``stablelm-3b`` (slice 6) runs its smoke config on the CPU (its head_dim 80
 waits for the kernels, ROADMAP B1w); ``gemma2-27b``, ``starcoder2-15b``,
-``chameleon-34b`` and ``whisper-small`` (slice 8) run on both.  The three
-MoE archs of the reference registry are queued in ROADMAP.md.  The order
-is the reference registry's.
+``chameleon-34b`` and ``whisper-small`` (slice 8) and the MoE archs
+``dbrx-132b``, ``granite-moe-3b-a800m`` and ``jamba-v0.1-52b`` (slice 9)
+run on both.  The order is the reference registry's.
 """
 
 from __future__ import annotations
@@ -20,6 +20,9 @@ ARCH_MODULES = {
     "stablelm-3b": "stablelm_3b",
     "yi-9b": "yi_9b",
     "starcoder2-15b": "starcoder2_15b",
+    "dbrx-132b": "dbrx_132b",
+    "granite-moe-3b-a800m": "granite_moe_3b_a800m",
+    "jamba-v0.1-52b": "jamba_v0_1_52b",
     "chameleon-34b": "chameleon_34b",
     "whisper-small": "whisper_small",
     "mamba2-2.7b": "mamba2_2_7b",

@@ -1,9 +1,13 @@
-"""Dense model layers: norms, RoPE, attention (plain path), MLP.
+"""Model layers: norms, RoPE, attention (plain path), MLP, MoE MLP.
 
 Pure functions on tensors with parameters passed explicitly, as in the
 reference.  ``blocked_attention`` and ``decode_attention`` here are the
 plain PyTorch versions: the model takes them on the CPU and the CUDA
-kernels in ``repro_torch.kernels`` on the card.
+kernels in ``repro_torch.kernels`` on the card.  The MoE MLP runs the
+same code on both: its expert products are batched matrix products over
+the experts (the reference's are XLA einsums, outside any Pallas kernel),
+and its routing uses no op that reads back to the host, so a decode step
+through it can be captured as a CUDA graph.
 """
 
 from __future__ import annotations
@@ -172,3 +176,113 @@ def mlp(x, p, cfg: ModelConfig):
     h = x @ p["wi"]
     h = act(h) * (x @ p["wg"]) if cfg.gated else act(h)
     return h @ p["wo"]
+
+
+# ----------------------------------------------------------------- MoE MLP
+def moe_template(cfg: ModelConfig) -> dict:
+    d, f, e = cfg.d_model, cfg.d_ff, cfg.n_experts
+    t = {"router": ParamSpec((d, e), ("embed", None), "float32",
+                             "normal", 0.02),
+         "w_in": ParamSpec((e, d, f), ("experts", "embed", "mlp"), cfg.dtype),
+         "w_out": ParamSpec((e, f, d), ("experts", "mlp", "embed"), cfg.dtype)}
+    if cfg.gated:
+        t["w_gate"] = ParamSpec((e, d, f), ("experts", "embed", "mlp"),
+                                cfg.dtype)
+    return t
+
+
+def _round_up(x: int, m: int) -> int:
+    return (x + m - 1) // m * m
+
+
+def _dispatch_one(eid, n_experts: int, capacity: int):
+    """Sort-based dispatch, each row of ``eid`` one token group.
+
+    eid: (..., S*k) expert id per (token, choice). Returns
+    * ``gather_tok`` (..., E*C): which flat (token, choice) each expert slot
+      reads (an empty slot reads 0)
+    * ``inv``        (..., S*k): the slot each (token, choice) landed in
+      (E*C = dropped: it points at a zero row)
+
+    A stable sort keeps the (token, choice) order within an expert, so the
+    first C of an expert's entries are kept, as in the reference.  The
+    counts are a comparison summed over the tokens (``bincount`` on the
+    card reads its maximum back to the host).  Dropped entries all write
+    the sentinel slot E*C, which is sliced off: which of them wins there
+    does not matter.
+    """
+    nk = eid.shape[-1]
+    eid_s, order = torch.sort(eid, dim=-1, stable=True)
+    experts = torch.arange(n_experts, device=eid.device)
+    counts = (eid[..., None] == experts).sum(-2)                 # (..., E)
+    starts = counts.cumsum(-1) - counts
+    rank = torch.arange(nk, device=eid.device) - starts.gather(-1, eid_s)
+    sentinel = n_experts * capacity
+    slot = torch.where(rank < capacity, eid_s * capacity + rank, sentinel)
+    gather_tok = eid.new_zeros(eid.shape[:-1] + (sentinel + 1,)) \
+        .scatter_(-1, slot, order)
+    inv = torch.full_like(eid, sentinel).scatter_(-1, order, slot)
+    return gather_tok[..., :-1], inv
+
+
+def capacity(cfg: ModelConfig, S: int) -> int:
+    """Expert slots per group of S tokens: S*k/E*cf rounded up to a multiple
+    of 8, at most S*k (the reference's expression, as written)."""
+    E, k = cfg.n_experts, cfg.top_k
+    C = _round_up(max(1, int(math.ceil(S * k / E * cfg.capacity_factor))), 8)
+    return min(C, S * k)
+
+
+def route(x, router, k: int):
+    """The router: x (G, S, d) -> (logits (G,S,E) fp32, probs, top_w and
+    top_e (G,S,k)).  The product runs in fp32 (the caller must leave TF32
+    off: it would change which experts are chosen); the top k are taken by
+    a stable descending sort, so ties go to the lower expert id and the
+    choices come in descending order, as ``jax.lax.top_k`` gives them."""
+    logits = x.to(f32) @ router.to(f32)
+    probs = torch.softmax(logits, dim=-1)
+    sorted_w, sorted_e = torch.sort(probs, dim=-1, descending=True,
+                                    stable=True)
+    return logits, probs, sorted_w[..., :k], sorted_e[..., :k]
+
+
+def moe_mlp(x, p, cfg: ModelConfig):
+    """Top-k token-choice MoE with sort-based dispatch (GShard-style
+    capacity).
+
+    x: (G, S, d): G groups (batch rows), each routed on its own.  Returns
+    (y, aux_loss).
+    """
+    G, S, d = x.shape
+    E, k = cfg.n_experts, cfg.top_k
+    C = capacity(cfg, S)
+    act = ACTS[cfg.mlp_act]
+
+    logits, probs, top_w, top_e = route(x, p["router"], k)      # (G,S,k)
+    top_w = top_w / top_w.sum(-1, keepdim=True).clamp_min(1e-9)
+
+    # flat index n corresponds to (token n // k, choice n % k)
+    gather_tok, inv = _dispatch_one(top_e.reshape(G, S * k), E, C)
+    tok_of_slot = gather_tok // k                                # (G, E*C)
+
+    # expert-major rows: (E, G*C, d), one bmm over E per product
+    rows = tok_of_slot.view(G, E, C).transpose(0, 1) \
+        + (torch.arange(G, device=x.device) * S)[None, :, None]
+    xe = x.reshape(G * S, d)[rows.reshape(E, G * C)]
+    h = torch.bmm(xe, p["w_in"])
+    h = act(h) * torch.bmm(xe, p["w_gate"]) if cfg.gated else act(h)
+    out = torch.bmm(h, p["w_out"]).view(E, G, C, d).transpose(0, 1) \
+        .reshape(G, E * C, d)
+    # zero row for dropped tokens, then combine by gather
+    out = torch.cat([out, out.new_zeros(G, 1, d)], dim=1)
+    picked = out.gather(1, inv[..., None].expand(G, S * k, d))
+    picked = picked.view(G, S, k, d)
+    y = torch.einsum("gskd,gsk->gsd", picked, top_w.to(picked.dtype))
+
+    # load-balance + router-z auxiliary losses (Switch/GShard standard)
+    me = probs.mean(dim=(0, 1))                                  # (E,)
+    first = top_e[..., :1] == torch.arange(E, device=x.device)
+    ce = first.to(f32).mean(dim=(0, 1))
+    aux = E * (me * ce).sum()
+    zloss = torch.logsumexp(logits, dim=-1).square().mean()
+    return y, cfg.router_aux_weight * aux + 1e-4 * zloss

@@ -1,5 +1,5 @@
-"""The port's model: the attention and SSM cycles of the reference, and its
-encoder-decoder (whisper).
+"""The port's model: the attention, SSM and MoE cycles of the reference, and
+its encoder-decoder (whisper): all ten architectures of its registry.
 
 Layers are grouped into a repeating *cycle*; stacked cycle parameters carry
 a leading layer dim, and the reference's ``lax.scan`` over them becomes a
@@ -41,6 +41,14 @@ plain path; the single-token decode step is plain PyTorch on both.  Their
 cache is the conv tail and the fp32 state, written in place.  The SSD
 kernels have no backward yet (ROADMAP B6): a grad-enabled train pass of
 SSM blocks raises on the card and runs the chunked plain path on the CPU.
+
+MoE blocks (``spec.moe``) take ``layers.moe_mlp`` for their MLP, on both
+devices.  Each MLP part returns its aux loss (0 for a dense MLP); blocks,
+cycles and the stack sum them, and ``forward_hidden`` / ``forward``
+return the sum, as the reference does.  Prefill and decode compute it and
+drop it.  The capacity depends on the tokens of a call, so a prefill, a
+decode step (one token: nothing drops) and a teacher-forced pass can drop
+different tokens at the same ``capacity_factor``, as in the reference.
 """
 
 from __future__ import annotations
@@ -66,14 +74,6 @@ f32 = torch.float32
 ENCODER_CYCLE = (LayerSpec(kind="attn", causal=False),)
 
 
-def _check_ported(cfg: ModelConfig) -> None:
-    """Raise for the part of the reference model the port leaves out."""
-    if any(spec.moe for spec in cfg.cycle):
-        raise NotImplementedError(
-            f"{cfg.name}: the MoE MLP is not ported to repro_torch yet "
-            f"(ROADMAP A12)")
-
-
 # ------------------------------------------------------------- templates
 def _attn_template(cfg: ModelConfig) -> dict:
     d, h, kv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
@@ -95,7 +95,7 @@ def _attn_template(cfg: ModelConfig) -> dict:
 
 def _mlp_part_template(cfg: ModelConfig, spec: LayerSpec) -> dict:
     t = {"ln": L.norm_template(cfg)}
-    t.update(L.mlp_template(cfg))
+    t.update(L.moe_template(cfg) if spec.moe else L.mlp_template(cfg))
     if cfg.post_block_norm:
         t["post_ln"] = L.norm_template(cfg)
     return t
@@ -129,7 +129,6 @@ def _proj(x, w):
 
 class Model:
     def __init__(self, cfg: ModelConfig, *, device=None):
-        _check_ported(cfg)
         self.cfg = cfg
         self.device = resolve_device(device)
 
@@ -290,12 +289,16 @@ class Model:
         return x + out
 
     def _mlp_part(self, x, p, spec: LayerSpec):
+        """-> (x + MLP(x), aux loss: 0 for a dense MLP)."""
         cfg = self.cfg
         h = L.apply_norm(x, p["ln"], cfg)
-        y = L.mlp(h, p, cfg)
+        if spec.moe:
+            y, aux = L.moe_mlp(h, p, cfg)
+        else:
+            y, aux = L.mlp(h, p, cfg), 0.0
         if cfg.post_block_norm:
             y = L.apply_norm(y, p["post_ln"], cfg)
-        return x + y
+        return x + y, aux
 
     def _ssm_part(self, x, p, *, mode, cache):
         """SSD mixer; prefill and decode write the conv tail and the state
@@ -315,6 +318,8 @@ class Model:
 
     def apply_block(self, x, p, spec: LayerSpec, *, mode, cache=None,
                     pos=None, enc_out=None):
+        """-> (x, aux loss of the block's MLP)."""
+        aux = 0.0
         if spec.kind == "attn":
             x = self._attn_part(x, p["attn"], spec, mode=mode, cache=cache,
                                 pos=pos)
@@ -324,47 +329,57 @@ class Model:
             x = self._cross_part(x, p["cross"], mode=mode, cache=cache,
                                  enc_out=enc_out)
         if spec.mlp:
-            x = self._mlp_part(x, p["mlp"], spec)
-        return x
+            x, aux = self._mlp_part(x, p["mlp"], spec)
+        return x, aux
 
     # -------------------------------------------------------------- stacks
     def _cycle(self, x, cp, *, mode, cache=None, pos=None, enc_out=None,
                cycle=None):
         """One cycle of blocks (``cycle``, the config's by default): ``cp`` /
-        ``cache`` hold its layer's parameters / cache views by block key."""
+        ``cache`` hold its layer's parameters / cache views by block key.
+        Returns (x, the blocks' summed aux loss)."""
+        aux = 0.0
         for i, spec in enumerate(cycle or self.cfg.cycle):
             key = f"s{i}"
-            x = self.apply_block(x, cp[key], spec, mode=mode,
-                                 cache=None if cache is None else cache[key],
-                                 pos=pos, enc_out=enc_out)
-        return x
+            x, a = self.apply_block(
+                x, cp[key], spec, mode=mode,
+                cache=None if cache is None else cache[key], pos=pos,
+                enc_out=enc_out)
+            aux = aux + a
+        return x, aux
 
     def _run_blocks(self, x, blocks, *, mode, cache=None, pos=None,
                     enc_out=None, cycle=None):
-        """The stack of cycles in ``blocks`` (stacked, leading layer dim)."""
+        """The stack of cycles in ``blocks`` (stacked, leading layer dim).
+        Returns (x, the aux loss summed over cycles, an fp32 scalar)."""
         cfg = self.cfg
         n = tree_leaves(blocks)[0].shape[0]
         layers = _unstack(blocks, n)
         remat = mode == "train" and cfg.remat != "none" \
             and torch.is_grad_enabled()
+        aux = 0.0
         for c in range(n):
             if remat:
-                x = checkpoint(self._cycle, x, layers[c], mode=mode,
-                               enc_out=enc_out, cycle=cycle,
-                               use_reentrant=False, preserve_rng_state=False)
+                x, a = checkpoint(self._cycle, x, layers[c], mode=mode,
+                                  enc_out=enc_out, cycle=cycle,
+                                  use_reentrant=False,
+                                  preserve_rng_state=False)
             else:
-                x = self._cycle(x, layers[c], mode=mode,
-                                cache=None if cache is None else
-                                tree_map(lambda t: t[c], cache), pos=pos,
-                                enc_out=enc_out, cycle=cycle)
-        return x
+                x, a = self._cycle(x, layers[c], mode=mode,
+                                   cache=None if cache is None else
+                                   tree_map(lambda t: t[c], cache), pos=pos,
+                                   enc_out=enc_out, cycle=cycle)
+            aux = aux + a
+        if not isinstance(aux, torch.Tensor):          # no MoE block
+            aux = torch.zeros((), dtype=f32, device=x.device)
+        return x, aux
 
     def encode(self, params, enc_embeds):
         """The encoder over frame embeddings (b, frames, d): non-causal
         attention blocks, then the encoder's final norm."""
         enc = params["encoder"]
-        x = self._run_blocks(enc_embeds, enc["blocks"], mode="encode",
-                             cycle=ENCODER_CYCLE)
+        x, _ = self._run_blocks(enc_embeds, enc["blocks"], mode="encode",
+                                cycle=ENCODER_CYCLE)
         return L.apply_norm(x, enc["final_norm"], self.cfg)
 
     def head_weights(self, params):
@@ -388,7 +403,8 @@ class Model:
     # ------------------------------------------------------------ entries
     def forward_hidden(self, params, tokens, enc_embeds=None):
         """The train pass, with autograd: final-norm hidden states
-        (b, s, d) and the aux loss (0: no MoE yet); no logits are formed.
+        (b, s, d) and the aux loss (the MoE blocks' sum, 0 without MoE);
+        no logits are formed.
         Reference: ``repro/models/model.py::Model.forward_hidden``."""
         cfg = self.cfg
         if tokens.device.type == "cuda" and torch.is_grad_enabled() and \
@@ -399,10 +415,9 @@ class Model:
         enc_out = self.encode(params, enc_embeds) if self.cfg.encoder \
             else None
         x = self._embed(params, tokens)
-        x = self._run_blocks(x, params["blocks"], mode="train",
-                             enc_out=enc_out)
-        x = L.apply_norm(x, params["final_norm"], cfg)
-        return x, torch.zeros((), dtype=f32, device=x.device)
+        x, aux = self._run_blocks(x, params["blocks"], mode="train",
+                                  enc_out=enc_out)
+        return L.apply_norm(x, params["final_norm"], cfg), aux
 
     @torch.inference_mode()
     def forward(self, params, tokens, enc_embeds=None):
@@ -410,10 +425,9 @@ class Model:
         enc_out = self.encode(params, enc_embeds) if self.cfg.encoder \
             else None
         x = self._embed(params, tokens)
-        x = self._run_blocks(x, params["blocks"], mode="train",
-                             enc_out=enc_out)
-        return self._head(x, params), torch.zeros((), dtype=f32,
-                                                  device=x.device)
+        x, aux = self._run_blocks(x, params["blocks"], mode="train",
+                                  enc_out=enc_out)
+        return self._head(x, params), aux
 
     @torch.inference_mode()
     def prefill(self, params, tokens, cache_len: int | None = None,
@@ -424,8 +438,8 @@ class Model:
         enc_out = self.encode(params, enc_embeds) if self.cfg.encoder \
             else None
         x = self._embed(params, tokens)
-        x = self._run_blocks(x, params["blocks"], mode="prefill", cache=cache,
-                             enc_out=enc_out)
+        x, _ = self._run_blocks(x, params["blocks"], mode="prefill",
+                                cache=cache, enc_out=enc_out)
         return self._head(x[:, -1:], params)[:, 0], cache
 
     @torch.inference_mode()
@@ -434,6 +448,6 @@ class Model:
 
         The cache is updated in place (and returned)."""
         x = self._embed(params, tokens[:, None])
-        x = self._run_blocks(x, params["blocks"], mode="decode", cache=cache,
-                             pos=pos)
+        x, _ = self._run_blocks(x, params["blocks"], mode="decode",
+                                cache=cache, pos=pos)
         return self._head(x, params)[:, 0], cache

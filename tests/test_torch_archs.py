@@ -10,6 +10,9 @@ from a seed.  gemma2 runs ``tests/test_models.py``'s window-8 cycle, and
 its comparisons with the reference use S = 24 (a multiple of the window):
 beyond that the reference's windowed cache layout drops a key (ROADMAP
 C-b), so a ragged prompt is held against the port's own teacher forcing.
+The MoE archs (dbrx-132b, granite-moe-3b-a800m, jamba-v0.1-52b) join the
+config, template and parameter-count tests; ``tests/test_torch_moe.py``
+holds their models.
 
     PYTHONPATH=src python -m pytest -q tests/test_torch_archs.py
 """
@@ -43,10 +46,14 @@ from repro_torch.train.loop import make_loss_fn  # noqa: E402
 torch.set_num_threads(2)
 
 ARCHS = ("gemma2-27b", "starcoder2-15b", "chameleon-34b", "whisper-small")
+CONFIG_ARCHS = ARCHS + ("dbrx-132b", "granite-moe-3b-a800m", "jamba-v0.1-52b")
 # full-config parameter counts, the reference's ranges (tests/test_models.py)
 PARAM_RANGES = {"gemma2-27b": (24e9, 30e9), "starcoder2-15b": (14e9, 17e9),
                 "chameleon-34b": (30e9, 38e9),
-                "whisper-small": (0.15e9, 0.35e9)}
+                "whisper-small": (0.15e9, 0.35e9),
+                "dbrx-132b": (120e9, 142e9),
+                "granite-moe-3b-a800m": (2.5e9, 4.5e9),
+                "jamba-v0.1-52b": (45e9, 60e9)}
 B, S = 2, 24
 TOL = 2e-3
 
@@ -201,13 +208,13 @@ def _as_port(v):
     return v
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", CONFIG_ARCHS)
 def test_configs_equal_reference(arch):
     assert get_config(arch) == _as_port(jax_get_config(arch))
     assert smoke_config(arch) == _as_port(jax_smoke_config(arch))
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", CONFIG_ARCHS)
 def test_templates_match_reference(arch):
     """Param and cache templates of the full config, leaf by leaf: shape,
     dtype, init and scale (the cache: shape, dtype, init)."""
@@ -224,14 +231,8 @@ def test_templates_match_reference(arch):
         {p: (s.shape, s.dtype, s.init) for p, s in tc.items()}
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", CONFIG_ARCHS)
 def test_full_config_parameter_count(arch):
     lo, hi = PARAM_RANGES[arch]
     n = count_params(Model(get_config(arch), device="cpu").param_template())
     assert lo <= n <= hi, f"{n:,}"
-
-
-@pytest.mark.parametrize("arch", ["dbrx-132b", "granite-moe-3b-a800m"])
-def test_moe_configs_still_raise(arch):
-    with pytest.raises(NotImplementedError, match="A12"):
-        Model(_as_port(jax_get_config(arch)), device="cpu")

@@ -61,6 +61,12 @@ FLASH_SHAPES = [
     # gemma2's window and softcap where the window bites at its length
     (1, 1500, 1500, 4, 4, 64, False, 0, 0.0),
     (1, 5120, 5120, 4, 2, 128, True, 4096, 50.0),
+    # granite's heads (24 q / 8 kv: g 3, dh 64) and dbrx's (48 / 8: g 6,
+    # dh 128), causal with ragged tails and sq < sk
+    (2, 300, 300, 24, 8, 64, True, 0, 0.0),
+    (1, 100, 229, 24, 8, 64, True, 0, 0.0),
+    (2, 200, 200, 48, 8, 128, True, 0, 0.0),
+    (1, 131, 259, 48, 8, 128, True, 0, 0.0),
 ]
 DECODE_SHAPES = [                 # (b, S, h, kv, dh, window, softcap)
     (2, 512, 4, 2, 64, 0, 0.0),
@@ -75,6 +81,9 @@ DECODE_SHAPES = [                 # (b, S, h, kv, dh, window, softcap)
     (2, 512, 4, 4, 128, 128, 50.0),
     (1, 300, 8, 2, 64, 0, 30.0),
     (2, 4352, 32, 16, 128, 4096, 50.0),
+    # granite's heads (g 3, dh 64) and dbrx's (g 6, dh 128), ragged caches
+    (3, 777, 24, 8, 64, 0, 0.0),
+    (2, 1029, 48, 8, 128, 0, 0.0),
 ]
 
 
@@ -173,13 +182,17 @@ def _card_arch(arch):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("arch", ("gemma2-27b", "starcoder2-15b",
-                                  "chameleon-34b", "whisper-small"))
+                                  "chameleon-34b", "whisper-small",
+                                  "dbrx-132b", "granite-moe-3b-a800m",
+                                  "jamba-v0.1-52b"))
 def test_new_archs_on_card_never_take_a_plain_path(cuda, monkeypatch, arch):
     """Prefill of a 21-token prompt and 4 decode steps on the card with the
     plain attention versions made to raise, against the CPU on the same
     weights (2e-3): flash once per attention layer in prefill (whisper:
     encoder, self and cross), decode once per layer and step (whisper: self
-    and cross); gemma2's 8-slot ring wraps."""
+    and cross); gemma2's 8-slot ring wraps.  The MoE archs run their MoE
+    MLP at the shipped capacity factor (prefill drops tokens), jamba its
+    SSM blocks through the SSD kernel."""
     from repro_torch.models import layers as L
     from repro_torch.models.model import Model
     from repro_torch.models.param import init_params, tree_map
@@ -218,7 +231,7 @@ def test_new_archs_on_card_never_take_a_plain_path(cuda, monkeypatch, arch):
     f0, d0 = flash_ops.flash_attention.launches, \
         decode_ops.decode_attention.launches
     got = run(Model(cfg), tree_map(lambda t: t.to(cuda), p_cpu), cuda)
-    n_attn = cfg.n_layers
+    n_attn = sum(spec.kind == "attn" for spec in cfg.layer_specs())
     if cfg.encoder:           # encoder, self and cross; self and cross
         n_flash, per_step = cfg.encoder.n_layers + 2 * n_attn, 2 * n_attn
     else:
@@ -246,6 +259,8 @@ SSD_SHAPES = [                    # (b, s, h, p, g, n, chunk)
     # 64 span heads); jamba's head_dim, d_state and chunk over 40 heads
     (1, 128, 5, 3, 1, 8, 32),
     (2, 256, 40, 1, 1, 16, 16),
+    # jamba's widths: 8192 heads of head_dim 1, d_state 16, chunk 16
+    (1, 256, 8192, 1, 1, 16, 16),
 ]
 
 
@@ -703,3 +718,115 @@ def test_full_width_train_step_card_vs_cpu(cuda):
     for name, card, cpu in zip(names, out[0][1], out[1][1]):
         err = float((card - cpu).abs().max())
         assert err <= 2e-3 * min(1.0, float(cpu.abs().max())), (name, err)
+
+
+def _moe_cfg(capacity_factor):
+    """granite's MoE MLP (40 experts, top 8) at width 256, d_ff 128, fp32."""
+    from dataclasses import replace
+
+    from repro_torch.configs import get_config
+    return replace(get_config("granite-moe-3b-a800m"), d_model=256, d_ff=128,
+                   dtype="float32", capacity_factor=capacity_factor)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cf,s", [(1.25, 512), (0.25, 512), (1.25, 1)])
+def test_moe_mlp_on_card_routes_as_the_cpu(cuda, cf, s):
+    """One MoE layer on the card against the CPU on the same fp32 weights
+    and inputs (4 groups): the chosen experts in order may differ only at a
+    near-tie (a gap below 1e-5 between adjacent CPU probabilities of the
+    first k + 1); in every group without one, the dispatch slots (so the
+    dropped (token, choice) pairs) are equal and the output is within 1e-4
+    of its scale; the aux loss within 1e-5 relative."""
+    from repro_torch.models import layers as L
+    from repro_torch.models.param import init_params, tree_map
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = _moe_cfg(cf)
+    p_cpu = init_params(L.moe_template(cfg), torch.Generator().manual_seed(0),
+                        device="cpu")
+    x = torch.from_numpy(np.random.default_rng(30).standard_normal(
+        (4, s, cfg.d_model)).astype(np.float32))
+    out = {}
+    for dev in ("cpu", cuda):
+        p = tree_map(lambda t: t.to(dev), p_cpu)
+        y, aux = L.moe_mlp(x.to(dev), p, cfg)
+        _, probs, _, top_e = L.route(x.to(dev), p["router"], cfg.top_k)
+        tok, inv = L._dispatch_one(top_e.reshape(4, -1), cfg.n_experts,
+                                   L.capacity(cfg, s))
+        out[str(dev)] = [t.cpu() for t in (y, aux, probs, top_e, tok, inv)]
+    y0, a0, p0, e0, t0, i0 = out["cpu"]
+    y1, a1, _, e1, t1, i1 = out["cuda"]
+    differ = (e0 != e1).any(-1)                                   # (G, S)
+    top = p0.sort(-1, descending=True).values[..., :cfg.top_k + 1]
+    gap = (top[..., :-1] - top[..., 1:]).min(-1).values
+    assert bool((gap[differ] < 1e-5).all()), gap[differ]
+    same = ~differ.any(-1)
+    assert bool(same.any())
+    assert torch.equal(t0[same], t1[same]) and torch.equal(i0[same], i1[same])
+    if cf == 0.25:
+        assert bool((i0 == cfg.n_experts * L.capacity(cfg, s)).any())
+    assert float((y1 - y0)[same].abs().max()) <= \
+        1e-4 * max(1.0, float(y0.abs().max()))
+    torch.testing.assert_close(a1, a0, rtol=1e-5, atol=0)
+
+
+@pytest.mark.cuda
+def test_route_on_card_breaks_ties_as_the_cpu(cuda):
+    """Exact ties in the router's probabilities (the router is the
+    identity, so the logits are x, tied by construction): the card orders
+    the choices as the CPU does, descending, ties to the lower expert."""
+    from repro_torch.models import layers as L
+
+    rng = np.random.default_rng(31)
+    x = rng.integers(0, 4, (2, 300, 40)).astype(np.float32) / 4.0
+    eye = torch.eye(40)
+    want = L.route(torch.from_numpy(x), eye, 8)
+    got = L.route(torch.from_numpy(x).to(cuda), eye.to(cuda), 8)
+    assert torch.equal(got[3].cpu(), want[3])
+    torch.testing.assert_close(got[2].cpu(), want[2], rtol=1e-6, atol=0)
+
+
+@pytest.mark.cuda
+def test_granite_decode_step_replays_as_cuda_graph(cuda):
+    """A decode step at granite's full width (2 layers, bf16: flash and
+    decode kernels at g 3 / dh 64, the MoE MLP with 40 experts, top 8)
+    captured as a CUDA graph and replayed: its logits and cache equal the
+    eager step's on a copy of the same cache, bit for bit, and the graph
+    replays with new tokens."""
+    from dataclasses import replace
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import Model
+    from repro_torch.models.param import init_params, tree_leaves, tree_map
+
+    cfg = replace(get_config("granite-moe-3b-a800m"), n_layers=2)
+    model = Model(cfg)
+    params = init_params(model.param_template(),
+                         torch.Generator(device=cuda).manual_seed(0))
+    rng = np.random.default_rng(32)
+    b, s = 4, 200
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (b, s + 2))) \
+        .to(cuda)
+    _, cache = model.prefill(params, toks[:, :s], cache_len=256)
+    eager_cache = tree_map(lambda t: t.clone(), cache)
+    warm_cache = tree_map(lambda t: t.clone(), cache)
+    tok, pos = toks[:, s].clone(), torch.full((b,), s, device=cuda)
+    want, _ = model.decode_step(params, eager_cache, tok, pos)
+    model.decode_step(params, warm_cache, tok, pos)       # warm-up, outside
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got, _ = model.decode_step(params, cache, tok, pos)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    for a, e in zip(tree_leaves(cache), tree_leaves(eager_cache)):
+        assert torch.equal(a, e)
+    # the next position with a new token, eager on the eager cache
+    tok.copy_(toks[:, s + 1])
+    pos.fill_(s + 1)
+    want2, _ = model.decode_step(params, eager_cache, tok, pos)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(got, want2)

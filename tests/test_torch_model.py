@@ -144,10 +144,3 @@ def test_init_params_kinds_and_device():
     cache = tm._new_cache(2, 16)
     assert bool((cache["s0"]["kpos"] == -1).all())
     assert abs(float(p["embed"].float().std()) - 0.02) < 0.005
-
-
-def test_unported_parts_raise():
-    cfg = replace(smoke_config("yi-9b"),
-                  cycle=(LayerSpec(kind="attn", moe=True),))
-    with pytest.raises(NotImplementedError, match="A12"):
-        Model(cfg, device="cpu")

@@ -8,7 +8,7 @@ to 2e-3, the reference's own decode-consistency tolerance
 the sums differs).
 """
 
-from dataclasses import fields, replace
+from dataclasses import replace
 
 import pytest
 
@@ -25,7 +25,6 @@ from repro.models.param import init_params as jax_init_params  # noqa: E402
 from repro.serve.engine import Request as JaxRequest  # noqa: E402
 from repro.serve.engine import ServeEngine as JaxServeEngine  # noqa: E402
 from repro_torch.configs import get_config, smoke_config  # noqa: E402
-from repro_torch.models import config as port_config  # noqa: E402
 from repro_torch.models.convert import params_from_jax  # noqa: E402
 from repro_torch.models.model import Model  # noqa: E402
 from repro_torch.models.param import count_params  # noqa: E402
@@ -157,24 +156,3 @@ def test_greedy_tokens_equal_reference_engine():
         [Request(p, n) for p, n in zip(prompts, MAX_NEW)])
     assert got == want
     assert [len(o) for o in got] == list(MAX_NEW)
-
-
-def _port_cfg(jcfg):
-    """The reference's config object as the port's (same fields)."""
-    def conv(v):
-        for cls in (port_config.LayerSpec, port_config.SSMConfig,
-                    port_config.EncoderConfig):
-            if type(v).__name__ == cls.__name__:
-                return cls(**{f.name: getattr(v, f.name) for f in fields(v)})
-        if isinstance(v, tuple):
-            return tuple(conv(e) for e in v)
-        return v
-    return port_config.ModelConfig(
-        **{f.name: conv(getattr(jcfg, f.name)) for f in fields(jcfg)})
-
-
-def test_jamba_still_raises_for_its_moe():
-    cfg = _port_cfg(jax_get_config("jamba-v0.1-52b"))
-    assert any(spec.kind == "ssm" for spec in cfg.cycle)
-    with pytest.raises(NotImplementedError, match="A12"):
-        Model(cfg, device="cpu")
