@@ -73,6 +73,16 @@ Phases (each raises on failure, so any failed check exits non-zero):
  11. jamba    - jamba-v0.1-52b at full width, 16 of its 32 layers (bf16,
                 ~53 GB) served as in phase 5: 2 flash and 14 SSD launches
                 a prefill, 2 decode a step
+ 12. mesh     - the Sharder on an NCCL group of this one card
+                (make_host_mesh: data 1): phase 7's 4-layer yi-9b with its
+                params and AdamW state as DTensors; the step-0 gradients
+                and 3 train steps against the unsharded model's (2e-3,
+                equal flash forward and backward launches, both step times
+                printed), phase 5's prefill against the unsharded one
+                (2e-2); then the cost model (launch/cost.py, counted on
+                meta) for phase 5's yi-9b and mamba2 prefills and phase 7's
+                step beside their measured times: model FLOPs, roofline
+                time, MFU, and the step's estimated peak memory
 Phase 3 also holds the flash-attention backward kernel against its plain
 version (autograd through the forward's) and times it at the training
 shape, whole and each of its three kernels alone; phase 4 also holds every
@@ -97,7 +107,9 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
@@ -114,6 +126,7 @@ from repro_torch.kernels.flash_attention.ref import (  # noqa: E402
     attention_bwd_ref, attention_lse_ref, attention_ref)
 from repro_torch.kernels.ssd import ops as ssd_ops  # noqa: E402
 from repro_torch.kernels.ssd.ref import ssd_ref  # noqa: E402
+from repro_torch.launch import cost, roofline  # noqa: E402
 from repro_torch.lst import FORMATS, LocalFS, chunkfile  # noqa: E402
 from repro_torch.lst.catalog import Catalog, TablePointer, ViewRef  # noqa: E402
 from repro_torch.models import layers as L  # noqa: E402
@@ -123,10 +136,17 @@ from repro_torch.models.param import (count_params, init_params,  # noqa: E402
 from repro_torch.optim import AdamWConfig  # noqa: E402
 from repro_torch.serve import Request, ServeEngine, SnapshotServer  # noqa: E402
 from repro_torch.train import Trainer, TrainerConfig, make_loss_fn  # noqa: E402
+from repro_torch.launch.cells import build_step  # noqa: E402
+from repro_torch.launch.mesh import make_host_mesh  # noqa: E402
+from repro_torch.models.config import ShapeCell  # noqa: E402
+from repro_torch.optim import adamw_init  # noqa: E402
+from repro_torch.parallel import Sharder  # noqa: E402
+from repro_torch.train.loop import make_train_step, train_state_template  # noqa: E402
 
 # H100 SXM data-sheet peaks (dense): bf16 tensor cores, fp32 CUDA cores, HBM
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
-PEAK_BYTES = 3.35e12
+PEAK_FLOPS = {torch.bfloat16: roofline.PEAK_FLOPS,
+              torch.float32: roofline.PEAK_FLOPS_FP32}
+PEAK_BYTES = roofline.HBM_BW
 TOL = {torch.float32: 3e-5, torch.bfloat16: 2e-2}
 # (b, sq, sk, h, kv, dh, causal, window, softcap)
 FLASH_SWEEP = [
@@ -345,14 +365,6 @@ def _flash_inputs(gen, shape, dtype):
     return q, k, v
 
 
-def _flash_visible_pairs(sq, sk, causal, window) -> int:
-    qpos = np.arange(sq)
-    hi = np.minimum(qpos, sk - 1) if causal else np.full(sq, sk - 1)
-    lo = np.maximum(0, qpos - window + 1) if (causal and window) \
-        else np.zeros(sq, np.int64)
-    return int(np.maximum(hi - lo + 1, 0).sum())
-
-
 def phase_flash(gen, main_shape) -> dict:
     for dtype in (torch.float32, torch.bfloat16):
         for shape in FLASH_SWEEP + [FLASH_RAGGED]:
@@ -383,8 +395,8 @@ def phase_flash(gen, main_shape) -> dict:
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
     lib_ms = time_ms(lambda *a: F.scaled_dot_product_attention(
         *a, is_causal=causal, enable_gqa=True), [(qt, kt, vt)], 10)
-    flops = 4.0 * b * h * dh * _flash_visible_pairs(sq, sk, causal, window)
-    nbytes = sum(t.numel() * t.element_size() for t in (q, k, v, out))
+    flops, nbytes = cost.flash_work(b, sq, sk, h, kv, dh, causal, window,
+                                    q.element_size())
     bms, by = bound_ms(flops, nbytes, dtype)
     rec = dict(name="flash_attention", route="cuda",
                source="src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
@@ -477,10 +489,8 @@ def phase_flash_bwd(gen, main_shape) -> dict:
     # least work: the five products of the backward over the visible pairs,
     # 2.5 x the forward's; bytes: q, k, v, out, dout, lse read, dq, dk, dv
     # written, each once
-    flops = 2.5 * 4.0 * b * h * dh * _flash_visible_pairs(sq, sk, causal,
-                                                           window)
-    nbytes = sum(t.numel() * t.element_size() for t in args) + \
-        2 * (q.numel() + k.numel() + v.numel())
+    flops, nbytes = cost.flash_bwd_work(b, sq, sk, h, kv, dh, causal, window,
+                                        q.element_size())
     bms, by = bound_ms(flops, nbytes, dtype)
     rec = dict(name="flash_attention_bwd", route="cuda",
                source="src/repro_torch/kernels/flash_attention/csrc/"
@@ -556,9 +566,8 @@ def phase_decode(gen, rng, main_shape, main_lengths) -> dict:
 
     def work(nb):
         """(FLOPs, bytes) of the first ``nb`` sequences."""
-        rows = int(np.sum(main_lengths[:nb]))
-        return 4.0 * h * dh * rows, \
-            2 * rows * kv * dh * 2 + 2 * nb * h * dh * 2 + 4 * nb
+        return cost.decode_work(int(np.sum(main_lengths[:nb])), nb, h, kv,
+                                dh)
 
     # the first one and two sequences of the same caches: smaller batches
     # take more, shorter splits (ops.split_plan)
@@ -662,7 +671,7 @@ def phase_ssd(gen, main_shape) -> dict:
                   scratch_bytes=plan.scratch_bytes)
     log(f"  ssd bf16 serving shape, each kernel alone and all three on one "
         f"set of buffers (ms): " + json.dumps(stages_ms))
-    flops, nbytes = ssd_work(args, main_shape)
+    flops, nbytes = cost.ssd_work(*main_shape, args[0].element_size())
     bms, by = bound_ms(flops, nbytes, dtype)
     rec = dict(name="ssd_chunk_scan", route="cuda",
                source="src/repro_torch/kernels/ssd/csrc/ssd.cu",
@@ -678,20 +687,6 @@ def phase_ssd(gen, main_shape) -> dict:
                     "kernels_ms": stages_ms, **layout,
                     "check_launches": ssd_ops.ssd_chunk_scan.launches}))
     return rec
-
-
-def ssd_work(args, shape) -> tuple:
-    """(FLOPs, bytes) of one SSD call on ``args`` at ``shape``: the
-    intra-chunk and state products; x and y, dt, A, B, C and the final
-    fp32 state, each moved once."""
-    b, s, h, p, g, n, chunk = shape
-    q = min(chunk, s)
-    nc = s // q
-    flops = 2.0 * q * p * (q + 2 * n) * b * h * nc + 2.0 * q * q * n * b * g * nc
-    x = args[0]
-    nbytes = 2 * x.numel() * x.element_size() + sum(
-        t.numel() * t.element_size() for t in args[1:]) + b * h * n * p * 4
-    return flops, nbytes
 
 
 def ssd_at(gen, shape) -> dict:
@@ -714,7 +709,7 @@ def ssd_at(gen, shape) -> dict:
     q = min(chunk, s)
     stages_ms = ssd_kernel_times(args, q)
     plan = ssd_ops.bf16_plan(b, s, h, p, g, n, q)
-    flops, nbytes = ssd_work(args, shape)
+    flops, nbytes = cost.ssd_work(*shape, args[0].element_size())
     bms, by = bound_ms(flops, nbytes, torch.bfloat16)
     rec = dict(kernel="ssd_chunk_scan", shape=list(shape), max_abs_err=err,
                ms=ms, f32_entry_ms=f32_ms, plain_ms=plain_ms, bound_ms=bms,
@@ -1720,8 +1715,8 @@ def flash_at(gen, shape, library: str) -> dict:
                 *a, is_causal=causal, enable_gqa=True), [(qt, kt, vt)], 10))
     else:
         lib = flex_library(q, k, v, out, **kw)
-    flops = 4.0 * b * h * dh * _flash_visible_pairs(sq, sk, causal, window)
-    nbytes = sum(t.numel() * t.element_size() for t in (q, k, v, out))
+    flops, nbytes = cost.flash_work(b, sq, sk, h, kv, dh, causal, window,
+                                    q.element_size())
     bms, by = bound_ms(flops, nbytes, dtype)
     rec = dict(kernel="flash_attention", shape=list(shape), max_abs_err=err,
                ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
@@ -1765,8 +1760,7 @@ def decode_at(gen, shape, lengths, library: str) -> dict:
     else:
         lib = flex_library(q[:, None], k, v, out[:, None], lengths=lens, **kw)
     rows = sum(min(int(n), window) if window else int(n) for n in lengths)
-    flops = 4.0 * h * dh * rows
-    nbytes = 2 * rows * kv * dh * 2 + 2 * b * h * dh * 2 + 4 * b
+    flops, nbytes = cost.decode_work(rows, b, h, kv, dh)
     bms, by = bound_ms(flops, nbytes, dtype)
     rec = dict(kernel="decode_attention", shape=list(shape),
                lengths=[int(n) for n in lengths], max_abs_err=err, ms=ms,
@@ -1958,6 +1952,195 @@ def phase_whisper(seed: int) -> dict:
     return stats
 
 
+def _sharded_grads(model, params, batch) -> tuple:
+    """The train loss (ce_chunk 128, as phase 7's) of ``model`` at
+    ``params`` (DTensors or tensors on the card) on ``batch`` and every
+    parameter's gradient as a plain tensor, in ``leaf_paths`` order."""
+    live = tree_map(lambda t: t.detach().requires_grad_(True), params)
+    with model.sh.region():
+        loss, _ = make_loss_fn(model, ce_chunk=128)(live, batch)
+        leaves = [t for _, t in leaf_paths(live)]
+        grads = torch.autograd.grad(loss, leaves)
+    full = [g.full_tensor() if isinstance(g, DTensor) else g for g in grads]
+    loss = loss.full_tensor() if isinstance(loss, DTensor) else loss
+    return float(loss.detach()), full
+
+
+def _steps(model, params, state, batch, n: int, **kw) -> tuple:
+    """``n`` train steps (phase 7's optimizer and loss chunk) on one batch
+    -> (losses, step seconds, launches of each step)."""
+    step = make_train_step(model, AdamWConfig(peak_lr=1e-3, warmup_steps=2,
+                                              total_steps=10),
+                           ce_chunk=128, **kw)
+    losses, secs, launches = [], [], []
+    for _ in range(n):
+        zero_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, state, met = step(params, state, batch)
+        loss = met["loss"]
+        loss = float(loss.full_tensor() if isinstance(loss, DTensor)
+                     else loss)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        launches.append(counts())
+        losses.append(loss)
+    return losses, secs, launches
+
+
+def _cost_vs_card(name: str, cfg, cell, measured_s: float) -> dict:
+    """Phase 12(c): one step counted on ``meta`` (one device: the host
+    mesh's), its roofline on the H100's constants, beside the card's
+    measured seconds."""
+    cb = build_step(cfg, cell, Sharder.null())
+    _, c = cost.analyze(cb.fn, *cb.args)
+    tokens = cell.global_batch * cell.seq_len
+    mflops = roofline.model_flops(cb.step_name, cb.n_active_params, tokens)
+    roof = max(c["flops"] / roofline.PEAK_FLOPS,
+               c["hbm_bytes"] / roofline.HBM_BW)
+    rec = dict(cell=name, counted_flops=c["flops"],
+               counted_dot_flops=c["dot_flops"], counted_hbm_bytes=c["hbm_bytes"],
+               model_flops=mflops, roofline_s=roof,
+               bound_by="operations" if c["flops"] / roofline.PEAK_FLOPS
+               > c["hbm_bytes"] / roofline.HBM_BW else "bytes",
+               measured_s=measured_s,
+               mfu=mflops / (measured_s * roofline.PEAK_FLOPS),
+               roofline_share=roof / measured_s,
+               kernels=c["kernels"],
+               est_peak_gib=(cb.argument_bytes + c["temp_peak_bytes"]) / 2**30)
+    log("  cost model: " + json.dumps(rec))
+    return rec
+
+
+def phase_mesh(card: str, seed: int, stats: dict) -> dict:
+    """The Sharder on the card: an NCCL group of this one GPU over a
+    FileStore in a temporary directory, ``make_host_mesh()`` (data 1), and
+    phase 7's full-width 4-layer yi-9b (block weights ``well_conditioned``,
+    as phase 4's) with params and state placed as DTensors.
+    (a) The train step: every gradient of step 0 within phase 4's 2e-3 of
+    the unsharded model's on the same weights and batch, then 3 steps of
+    each, each step's loss within 2e-3 relative and the same flash forward
+    and backward launches; both step times are printed (the DTensor host
+    cost).  (b) The prefill of phase 5's 4 requests: last-position logits
+    within 2e-2 (bf16) of the unsharded prefill, with equal launches.
+    (c) The cost model: phase 5's yi-9b and mamba2 prefills and phase 7's
+    train step counted on ``meta``, with their model FLOPs, roofline time
+    and MFU at the measured medians of phases 5 and 7, and the step's
+    estimated peak memory beside phase 7's measured one (not gated)."""
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_mesh_"))
+    dist.init_process_group(
+        "nccl", store=dist.FileStore(str(root / "store"), 1), rank=0,
+        world_size=1, device_id=torch.device("cuda", 0))
+    try:
+        sh = Sharder.for_mesh(make_host_mesh())
+        cfg = replace(get_config("yi-9b"), n_layers=TRAIN_LAYERS)
+        plain, sharded = Model(cfg), Model(cfg, sh)
+        ptpl, otpl = train_state_template(plain)
+        tpl = well_conditioned(ptpl)
+
+        def fresh():
+            return init_params(tpl, torch.Generator(device="cuda")
+                               .manual_seed(seed))
+
+        out = dict(mesh=dict(zip(sh.mesh_axes, sh.mesh_axes.values())),
+                   layers=cfg.n_layers, card=card)
+        # (b) prefill, phase 5's requests
+        rng = np.random.default_rng(seed)
+        toks = np.full((SERVE_B, max(SERVE_PROMPTS)), cfg.vocab_size - 1,
+                       np.int64)
+        for i, n in enumerate(SERVE_PROMPTS):
+            toks[i, -n:] = rng.integers(0, cfg.vocab_size - 1, n)
+        toks = torch.from_numpy(toks).cuda()
+        params = fresh()
+        runs = {}
+        for name, model, p in (("plain", plain, params),
+                               ("sharded", sharded,
+                                sh.distribute(params, ptpl))):
+            for _ in range(2):                # the second run is timed
+                zero_counts()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                logits, _ = model.prefill(p, toks, cache_len=SERVE_CACHE)
+                torch.cuda.synchronize()
+            runs[name] = (time.perf_counter() - t0, counts(),
+                          logits.full_tensor() if isinstance(logits, DTensor)
+                          else logits)
+        err = max_err(runs["sharded"][2], runs["plain"][2])
+        out["prefill"] = dict(
+            plain_s=runs["plain"][0], sharded_s=runs["sharded"][0],
+            launches=runs["sharded"][1], max_abs_err=err)
+        log("  mesh prefill: " + json.dumps(out["prefill"]))
+        if not within(runs["sharded"][2], runs["plain"][2], 2e-2):
+            raise AssertionError(f"mesh: sharded prefill logits differ "
+                                 f"({err})")
+        if runs["sharded"][1] != runs["plain"][1] or \
+                runs["sharded"][1]["flash_attention"] != cfg.n_layers:
+            raise AssertionError(f"mesh: prefill launches {runs}")
+        del params, runs, logits
+
+        # (a) train: step-0 gradients, then 3 steps of each
+        data = np.random.default_rng(seed).integers(
+            0, cfg.vocab_size, (TRAIN_B, TRAIN_S + 1))
+        data = torch.from_numpy(data).cuda()
+        batch = {"inputs": data[:, :-1], "targets": data[:, 1:]}
+        params = fresh()
+        loss_p, grads_p = _sharded_grads(plain, params, batch)
+        res_p = _steps(plain, params, adamw_init(params), batch, 3)
+        del params
+        torch.cuda.empty_cache()
+        state = sh.distribute(adamw_init(fresh()), otpl)
+        params = sh.distribute(fresh(), ptpl)
+        loss_s, grads_s = _sharded_grads(sharded, params, batch)
+        names = [n for n, _ in leaf_paths(ptpl)]
+        rows = {n: dict(err=max_err(a, b), max=float(b.abs().max()))
+                for n, a, b in zip(names, grads_s, grads_p)}
+        del grads_s, grads_p
+        torch.cuda.empty_cache()
+        res_s = _steps(sharded, params, state, batch, 3,
+                       grad_pspecs=sh.template_pspecs(ptpl))
+        del params, state
+        torch.cuda.empty_cache()
+        out["train"] = dict(
+            step0_loss_plain=loss_p, step0_loss_sharded=loss_s,
+            losses_plain=res_p[0], losses_sharded=res_s[0],
+            step_s_plain=res_p[1], step_s_sharded=res_s[1],
+            launches_plain=res_p[2], launches_sharded=res_s[2],
+            grad_max_err=max(r["err"] for r in rows.values()))
+        log(f"  mesh train, {card}: " + json.dumps(out["train"]))
+        for n, r in rows.items():
+            if not r["err"] <= 2e-3 * min(1.0, r["max"]):
+                raise AssertionError(f"mesh: sharded gradient {n} misses "
+                                     f"the unsharded by {r['err']} (max "
+                                     f"|g| {r['max']})")
+        for a, b in zip(res_s[0], res_p[0]):
+            if not abs(a - b) <= 2e-3 * abs(b):
+                raise AssertionError(f"mesh: step losses {res_s[0]} vs "
+                                     f"{res_p[0]}")
+        want = {"flash_attention": 2 * cfg.n_layers, "decode_attention": 0,
+                "ssd_chunk_scan": 0, "flash_attention_bwd": cfg.n_layers}
+        if res_s[2] != [want] * 3 or res_p[2] != [want] * 3:
+            raise AssertionError(f"mesh: step launches {res_s[2]}, "
+                                 f"{res_p[2]}, want {want} each")
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(root, ignore_errors=True)
+
+    # (c) the cost model against the card (counted on meta: no launch)
+    serve = ShapeCell("serve", "prefill", max(SERVE_PROMPTS), SERVE_B)
+    out["cost"] = [
+        _cost_vs_card("yi-9b prefill", get_config("yi-9b"), serve,
+                      stats["yi-9b"]["prefill_s"]),
+        _cost_vs_card("mamba2-2.7b prefill", get_config("mamba2-2.7b"),
+                      serve, stats["mamba2-2.7b"]["prefill_s"]),
+        _cost_vs_card("yi-9b train step", cfg,
+                      ShapeCell("train", "train", TRAIN_S, TRAIN_B),
+                      stats["train"]["step_s_median_1_3"])]
+    log(f"  mesh: phase 7's step peak memory estimated "
+        f"{out['cost'][-1]['est_peak_gib']:.2f} GiB, measured "
+        f"{stats['train']['peak_mem_gib']:.2f} GiB (not gated)")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2057,6 +2240,13 @@ def main() -> int:
         {"flash_attention": moe_kernels["jamba_flash"]["ms"],
          "ssd_chunk_scan": moe_kernels["jamba_ssd"]["ms"]},
         min_agreement=None, layers=JAMBA_LAYERS)
+    torch.cuda.empty_cache()
+
+    # each path is read on its own: phase 12 sets the counts to 0 before
+    # each of its runs and compares the sharded run's with the unsharded's
+    head("phase 12: mesh, yi-9b full width, 4 layers, sharded by the "
+         "Sharder on an NCCL group of this card; the cost model")
+    stats["mesh"] = phase_mesh(card, args.seed, stats)
     torch.cuda.empty_cache()
 
     # each kernel's launches on its main path: serving (phase 5) for the

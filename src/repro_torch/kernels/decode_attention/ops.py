@@ -2,7 +2,10 @@
 
 CPU tensors take the plain version (``ref.decode_attention_ref``); CUDA
 tensors launch the CUDA kernel or raise, also when an input requires grad
-while grad mode is on (the kernel has no backward).  ``decode_attention.launches``
+while grad mode is on (the kernel has no backward); ``meta`` tensors (the
+dry run, under ``launch.cost``'s counter) get an output of the right
+shape, and the kernel's work over a full cache (every row within the
+window) goes to the counter.  ``decode_attention.launches``
 counts the kernel launches (one per call: the split pass and its merge).
 """
 
@@ -14,6 +17,7 @@ import functools
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.launch import cost
 from repro_torch.kernels.decode_attention.ref import decode_attention_ref
 
 HEAD_DIMS = (64, 128)
@@ -73,7 +77,7 @@ def _check(q, k_cache, v_cache, lengths):
     if k_cache.shape[0] != b or k_cache.shape[3] != dh or h % kv:
         raise ValueError(f"shapes do not pair: q {tuple(q.shape)}, "
                          f"cache {tuple(k_cache.shape)}")
-    if dh not in HEAD_DIMS:
+    if dh not in HEAD_DIMS and not cost.counting(q):
         raise ValueError(f"head_dim {dh} not supported by the CUDA kernel "
                          f"(supported: {HEAD_DIMS})")
     if h // kv > MAX_GROUP:
@@ -85,6 +89,8 @@ def _check(q, k_cache, v_cache, lengths):
                         f"{v_cache.dtype}: want all float32 or all bfloat16")
     if lengths.dtype != torch.int32 or tuple(lengths.shape) != (b,):
         raise TypeError(f"lengths must be int32 of shape ({b},)")
+    if cost.counting(q):
+        return
     for name, t in (("q", q), ("k_cache", k_cache), ("v_cache", v_cache),
                     ("lengths", lengths)):
         if not t.is_cuda or t.device != q.device:
@@ -111,6 +117,11 @@ def decode_attention(q, k_cache, v_cache, lengths, *, window: int = 0,
     _check(q, k_cache, v_cache, lengths)
     b, h, dh = q.shape
     S, kv = k_cache.shape[1], k_cache.shape[2]
+    if cost.counting(q):
+        rows = b * (min(window, S) if window else S)
+        cost.count_kernel("decode_attention", *cost.decode_work(
+            rows, b, h, kv, dh, q.element_size()))
+        return torch.empty_like(q)
     chunk, nsplit = split_plan(S, _num_sms(q.device.index), b * kv)
     out = torch.empty_like(q)
     part_m = torch.empty((b, h, nsplit), dtype=torch.float32, device=q.device)

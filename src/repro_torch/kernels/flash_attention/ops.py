@@ -1,7 +1,10 @@
 """Public wrappers of the flash attention kernels, forward and backward.
 
 CPU tensors take the plain versions (``ref.attention_ref``,
-``ref.attention_bwd_ref``); CUDA tensors launch the CUDA kernels or raise.
+``ref.attention_bwd_ref``); CUDA tensors launch the CUDA kernels or raise;
+``meta`` tensors under ``launch.cost``'s counter (the dry run) get
+outputs of the right shape, and the kernels' work goes to the counter,
+uncounted as launches.
 ``flash_attention`` on CUDA inputs that need a gradient (grad mode on and
 an input requiring grad) goes through ``FlashAttentionFn``: the forward
 kernel also writes the row log-sum-exp, and the backward is the
@@ -20,6 +23,7 @@ import functools
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.launch import cost
 from repro_torch.kernels.flash_attention.ref import (attention_bwd_ref,
                                                      attention_ref)
 
@@ -81,14 +85,22 @@ def _check(q, k, v):
     if k.shape[0] != b or k.shape[3] != dh or h % k.shape[2]:
         raise ValueError(f"shapes do not pair: q {tuple(q.shape)}, "
                          f"k {tuple(k.shape)}")
-    if dh not in HEAD_DIMS:
-        raise ValueError(f"head_dim {dh} not supported by the CUDA kernel "
-                         f"(supported: {HEAD_DIMS})")
     if q.dtype not in _ENTRY or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"dtypes {q.dtype}, {k.dtype}, {v.dtype}: want all "
                         "float32 or all bfloat16")
+    if cost.counting(q):            # counted at any head_dim (ROADMAP B1w)
+        return
+    if dh not in HEAD_DIMS:
+        raise ValueError(f"head_dim {dh} not supported by the CUDA kernel "
+                         f"(supported: {HEAD_DIMS})")
     for name, t in (("q", q), ("k", k), ("v", v)):
         _check_tensor(name, t, q.device)
+
+
+def _shape_args(q, k, causal, window) -> tuple:
+    b, sq, h, dh = q.shape
+    return (b, sq, k.shape[1], h, k.shape[2], dh, causal, window,
+            q.element_size())
 
 
 def _launch_fwd(q, k, v, causal, window, softcap, with_lse):
@@ -99,6 +111,10 @@ def _launch_fwd(q, k, v, causal, window, softcap, with_lse):
     out = torch.empty_like(q)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device) \
         if with_lse else None
+    if cost.counting(q):
+        cost.count_kernel("flash_attention",
+                          *cost.flash_work(*_shape_args(q, k, causal, window)))
+        return out, lse
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = _entry(q.dtype)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
@@ -141,12 +157,13 @@ def _check_bwd(q, k, v, out, dout, lse):
         if t.shape != q.shape or t.dtype != q.dtype:
             raise ValueError(f"{name} {tuple(t.shape)} {t.dtype}: want "
                              f"{tuple(q.shape)} {q.dtype}")
-        _check_tensor(name, t, q.device)
     b, sq, h = q.shape[:3]
     if lse.shape != (b, h, sq) or lse.dtype != torch.float32:
         raise ValueError(f"lse {tuple(lse.shape)} {lse.dtype}: want "
                          f"({b}, {h}, {sq}) float32")
-    _check_tensor("lse", lse, q.device)
+    if not cost.counting(q):
+        for name, t in (("out", out), ("dout", dout), ("lse", lse)):
+            _check_tensor(name, t, q.device)
 
 
 def bwd_buffers(q, k):
@@ -178,6 +195,10 @@ def flash_attention_bwd(q, k, v, out, dout, lse, *, causal: bool = True,
                                  softcap=softcap)
     _check_bwd(q, k, v, out, dout, lse)
     buffers = bwd_buffers(q, k)
+    if cost.counting(q):
+        cost.count_kernel("flash_attention_bwd", *cost.flash_bwd_work(
+            *_shape_args(q, k, causal, window)))
+        return buffers[:3]
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = _bwd_entry(q.dtype)(
         *_bwd_args(q, k, v, out, dout, lse, buffers, causal, window, softcap),

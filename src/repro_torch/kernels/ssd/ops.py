@@ -2,7 +2,9 @@
 
 CPU tensors take the plain version (``ref.ssd_ref``); CUDA tensors launch
 the CUDA kernels or raise, also when an input requires grad while grad mode
-is on (the backward is ROADMAP B6).  ``ssd_chunk_scan.launches`` counts calls of the
+is on (the backward is ROADMAP B6); ``meta`` tensors under
+``launch.cost``'s counter (the dry run) get outputs of the right shape,
+and the kernels' work goes to the counter.  ``ssd_chunk_scan.launches`` counts calls of the
 op that launched on the card: one per call, whatever the number of kernels.
 
 * bf16 x/B/C: three kernels per call (``csrc/ssd.cu``): chunk states, the
@@ -26,6 +28,7 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.ssd.ref import ssd_ref
+from repro_torch.launch import cost
 
 SMEM_LIMIT = 232_448        # shared memory one block may opt into (H100)
 TILES = (64, 32, 16)        # fp32 kernel: chunk rows per tile, the largest that fits
@@ -279,9 +282,15 @@ def ssd_chunk_scan(x, dt, A, B, C, *, chunk: int = 256, init=None):
             "ssd_chunk_scan: the CUDA kernels have no backward yet (ROADMAP "
             "B6); call them under torch.no_grad() or torch.inference_mode()")
     check_operands(x, dt, A, B, C, init)
-    _check_device(x, dt, A, B, C, init)
     b, s, h, p = x.shape
     g, n = B.shape[2], B.shape[3]
+    if cost.counting(x):
+        cost.count_kernel("ssd_chunk_scan", *cost.ssd_work(
+            b, s, h, p, g, n, q, x.element_size(), init is not None))
+        return (torch.empty((b, s, h, p), dtype=x.dtype, device=x.device),
+                torch.empty((b, h, n, p), dtype=torch.float32,
+                            device=x.device))
+    _check_device(x, dt, A, B, C, init)
     if x.dtype == torch.bfloat16:
         buffers = bf16_buffers(x, B, q)
         ssd_chunk_scan.launches += 1

@@ -93,3 +93,27 @@ class ModelConfig:
 
     def with_updates(self, **kw) -> "ModelConfig":
         return replace(self, **kw)
+
+
+@dataclass(frozen=True)
+class ShapeCell:
+    """One assigned (input-shape) cell."""
+    name: str                   # train_4k | prefill_32k | decode_32k | long_500k
+    step: str                   # train | prefill | decode
+    seq_len: int
+    global_batch: int
+
+
+SHAPE_CELLS = (
+    ShapeCell("train_4k", "train", 4096, 256),
+    ShapeCell("prefill_32k", "prefill", 32768, 32),
+    ShapeCell("decode_32k", "decode", 32768, 128),
+    ShapeCell("long_500k", "decode", 524288, 1),
+)
+
+
+def get_shape_cell(name: str) -> ShapeCell:
+    for c in SHAPE_CELLS:
+        if c.name == name:
+            return c
+    raise KeyError(name)

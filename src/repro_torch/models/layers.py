@@ -171,10 +171,12 @@ def mlp_template(cfg: ModelConfig) -> dict:
     return t
 
 
-def mlp(x, p, cfg: ModelConfig):
+def mlp(x, p, cfg: ModelConfig, sh=None):
     act = ACTS[cfg.mlp_act]
     h = x @ p["wi"]
     h = act(h) * (x @ p["wg"]) if cfg.gated else act(h)
+    if sh is not None:
+        h = sh(h, "batch", "seq", "mlp")
     return h @ p["wo"]
 
 
@@ -246,7 +248,7 @@ def route(x, router, k: int):
     return logits, probs, sorted_w[..., :k], sorted_e[..., :k]
 
 
-def moe_mlp(x, p, cfg: ModelConfig):
+def moe_mlp(x, p, cfg: ModelConfig, sh=None):
     """Top-k token-choice MoE with sort-based dispatch (GShard-style
     capacity).
 
@@ -269,8 +271,12 @@ def moe_mlp(x, p, cfg: ModelConfig):
     rows = tok_of_slot.view(G, E, C).transpose(0, 1) \
         + (torch.arange(G, device=x.device) * S)[None, :, None]
     xe = x.reshape(G * S, d)[rows.reshape(E, G * C)]
+    if sh is not None:
+        xe = sh(xe, "experts", None, None)
     h = torch.bmm(xe, p["w_in"])
     h = act(h) * torch.bmm(xe, p["w_gate"]) if cfg.gated else act(h)
+    if sh is not None:
+        h = sh(h, "experts", None, "mlp")
     out = torch.bmm(h, p["w_out"]).view(E, G, C, d).transpose(0, 1) \
         .reshape(G, E * C, d)
     # zero row for dropped tokens, then combine by gather
@@ -278,6 +284,8 @@ def moe_mlp(x, p, cfg: ModelConfig):
     picked = out.gather(1, inv[..., None].expand(G, S * k, d))
     picked = picked.view(G, S, k, d)
     y = torch.einsum("gskd,gsk->gsd", picked, top_w.to(picked.dtype))
+    if sh is not None:
+        y = sh(y, "batch", "seq", None)
 
     # load-balance + router-z auxiliary losses (Switch/GShard standard)
     me = probs.mean(dim=(0, 1))                                  # (E,)

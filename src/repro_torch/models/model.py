@@ -18,7 +18,8 @@ final norm.  Each decoder block then attends to the encoder output in its
 cross part (no RoPE, qk-norm, window or softcap); prefill stores the
 projected ``ck`` / ``cv`` in the cache, and decode reads them there.
 
-The last three run under ``torch.inference_mode``.  In the train pass
+The last three run under ``torch.inference_mode`` (``no_grad`` for a
+sharded model).  In the train pass
 each cycle is rematerialised (``torch.utils.checkpoint``, non-reentrant)
 unless ``cfg.remat == "none"``, as the reference's ``jax.checkpoint`` per
 cycle does: the backward runs each cycle's forward again, so flash
@@ -42,6 +43,18 @@ cache is the conv tail and the fp32 state, written in place.  The SSD
 kernels have no backward yet (ROADMAP B6): a grad-enabled train pass of
 SSM blocks raises on the card and runs the chunked plain path on the CPU.
 
+Sharding: ``Model(cfg, sharder)`` with a ``parallel.Sharder`` on a mesh
+takes params (and caches, which it allocates) as DTensors and constrains
+activations where the reference's ``self.sh`` does: q/k/v (heads), block
+inputs (batch), MLP hiddens (mlp), the cycle boundary (``act_seq``), the
+embedding, the head (vocab).  The kernels, and on the CPU their plain
+versions, get each rank's shards through ``Sharder.local_call``; when the
+kv heads stay whole while the query heads split (GQA on a wider
+``model`` axis), ``_kv_for_heads`` gives each rank the kv heads of its
+own query heads.  Projections are laid out before their views
+(``_matmul_view``), and cache writes are local.  Without a sharder every
+constraint is the identity and every path is the unsharded one.
+
 MoE blocks (``spec.moe``) take ``layers.moe_mlp`` for their MLP, on both
 devices.  Each MLP part returns its aux loss (0 for a dense MLP); blocks,
 cycles and the stack sum them, and ``forward_hidden`` / ``forward``
@@ -56,6 +69,8 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Shard
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import DTYPES, resolve_device
@@ -66,6 +81,7 @@ from repro_torch.models import ssm as S
 from repro_torch.models.config import LayerSpec, ModelConfig
 from repro_torch.models.param import (ParamSpec, stack_cycle, tree_leaves,
                                       tree_map)
+from repro_torch.parallel.sharding import Sharder, local_offset
 
 f32 = torch.float32
 
@@ -121,15 +137,44 @@ def _unstack(tree, n: int) -> list:
     return list(tree.unbind(0))
 
 
-def _proj(x, w):
-    """x (b, s, d) @ w (d, ...) -> (b, s, ...), contiguous."""
-    b, s, d = x.shape
-    return (x.reshape(b * s, d) @ w.reshape(d, -1)).view(b, s, *w.shape[1:])
+def _local(t):
+    """This rank's shard of a DTensor (the tensor itself otherwise)."""
+    return t.to_local() if isinstance(t, DTensor) else t
+
+
+def _kv_for_heads(k, v, h0: int, h_loc: int, g: int):
+    """The k/v heads that the query heads h0 .. h0 + h_loc - 1 (global
+    indices, g query heads per kv head) attend to, in a GQA layout for
+    those heads alone.  ``k``/``v`` (b, s, kv, dh) hold either exactly the
+    kv heads of the local query heads (sharded alike, or nothing sharded)
+    or every kv head (replicated while the query heads are split)."""
+    if k.shape[2] * g == h_loc:
+        return k, v
+    if g % h_loc == 0 or h_loc % g == 0:      # one group, or whole groups
+        lo, n = h0 // g, max(1, h_loc // g)
+        return (k[:, :, lo:lo + n].contiguous(),
+                v[:, :, lo:lo + n].contiguous())
+    idx = torch.arange(h0, h0 + h_loc, device=k.device) // g
+    return k.index_select(2, idx), v.index_select(2, idx)
+
+
+def _on_kernels(x) -> bool:
+    """The card's dispatch: the CUDA kernels on the card, and on ``meta``
+    (the dry run) their meta branches, which count their work."""
+    return x.device.type in ("cuda", "meta")
+
+
+def _flat_placements(pl) -> list:
+    """Placements of a (b, s, ...) layout for its (b*s, prod(...)) view:
+    batch sharding stays on dim 0, the first trailing dim's on dim 1."""
+    return [Shard({0: 0, 2: 1}[p.dim]) if p.is_shard() else p for p in pl]
 
 
 class Model:
-    def __init__(self, cfg: ModelConfig, *, device=None):
+    def __init__(self, cfg: ModelConfig, sharder: Sharder | None = None, *,
+                 device=None):
         self.cfg = cfg
+        self.sh = sharder or Sharder.null()
         self.device = resolve_device(device)
 
     # --------------------------------------------------------- param spec
@@ -181,81 +226,187 @@ class Model:
 
     def _new_cache(self, batch: int, cache_len: int) -> dict:
         def alloc(s: ParamSpec):
-            return torch.full(s.shape, -1 if s.init == "neg_ones" else 0,
-                              dtype=DTYPES[s.dtype], device=self.device)
+            return self.sh.full(s.shape, s.axes,
+                                -1 if s.init == "neg_ones" else 0,
+                                DTYPES[s.dtype], self.device)
         return tree_map(alloc, self.cache_template(batch, cache_len))
 
     # ------------------------------------------------------------- blocks
+    def _matmul_view(self, a, w, shape: tuple, axes: tuple):
+        """a (m, k) @ w (k, n) viewed as ``shape`` (m = shape[0] * shape[1]).
+        Sharded, the product is first laid out as ``axes`` (the logical
+        axes of ``shape``) would be, flattened: DTensor may split n where
+        the view cannot, and may hand the operands' flattened views a
+        gradient layout their backward cannot unflatten, so each operand's
+        gradient is pinned to its own layout (a redistribution to the same
+        placements is the identity forward)."""
+        if isinstance(w, DTensor):
+            a = a.redistribute(a.device_mesh, a.placements)
+            w = w.redistribute(w.device_mesh, w.placements)
+        y = a @ w
+        if isinstance(y, DTensor):
+            y = y.redistribute(self.sh.mesh, _flat_placements(
+                self.sh.placements(axes, shape)))
+        return y.view(*shape)
+
+    def _proj(self, x, w, axes: tuple):
+        """x (b, s, d) @ w (d, ...) -> (b, s, ...), contiguous; ``axes``
+        are the logical axes of w's trailing dims."""
+        b, s, d = x.shape
+        return self._matmul_view(x.reshape(b * s, d), w.reshape(d, -1),
+                                 (b, s, *w.shape[1:]), ("batch", "seq") + axes)
+
+    def _out_proj(self, o, w):
+        """Attention output o (b, s, h, dh) @ w (h, dh, d) -> (b, s, d)."""
+        b, s = o.shape[:2]
+        d = self.cfg.d_model
+        return self._matmul_view(o.reshape(b * s, -1), w.reshape(-1, d),
+                                 (b, s, d), ("batch", "seq", None))
+
     def _project_qkv(self, h, p, positions, use_rope: bool = True):
         cfg = self.cfg
-        q, k, v = _proj(h, p["wq"]), _proj(h, p["wk"]), _proj(h, p["wv"])
+        q = self._proj(h, p["wq"], ("heads", None))
+        k = self._proj(h, p["wk"], ("kv_heads", None))
+        v = self._proj(h, p["wv"], ("kv_heads", None))
         if cfg.qk_norm:
             q = L.rms_norm(q, p["qn"]["scale"], cfg.norm_eps)
             k = L.rms_norm(k, p["kn"]["scale"], cfg.norm_eps)
         if use_rope:
             q = L.rope(q, positions, cfg.rope_theta)
             k = L.rope(k, positions, cfg.rope_theta)
+        q = self.sh(q, "batch", "seq", "heads", None)
+        k = self.sh(k, "batch", "seq", "kv_heads", None)
+        v = self.sh(v, "batch", "seq", "kv_heads", None)
         return q, k, v
+
+    def _attention(self, q, k, v, *, causal: bool = True, window: int = 0,
+                   softcap: float = 0.0):
+        """Attention of q (b, sq, h, dh) over k/v (b, sk, kv, dh), on each
+        rank's heads (``Sharder.local_call``; GQA through ``_kv_for_heads``):
+        the flash kernel on the card, ``blocked_attention`` on the CPU."""
+        cfg = self.cfg
+        q = self.sh(q, "batch", "seq", "heads", None)
+        h0, g = local_offset(q, 2), q.shape[2] // k.shape[2]
+        kernel = _on_kernels(q)
+
+        def attend(ql, kl, vl):
+            kl, vl = _kv_for_heads(kl, vl, h0, ql.shape[2], g)
+            if kernel:
+                return flash_attention(ql.contiguous(), kl.contiguous(),
+                                       vl.contiguous(), causal=causal,
+                                       window=window, softcap=softcap)
+            return L.blocked_attention(ql, kl, vl, causal=causal,
+                                       window=window, cap=softcap,
+                                       q_blocks=cfg.attn_q_blocks)
+
+        kv_axes = ("batch", "seq", "kv_heads", None)
+        return self.sh.local_call(
+            attend, [(q, ("batch", "seq", "heads", None)), (k, kv_axes),
+                     (v, kv_axes)],
+            [(("batch", "seq", "heads", None), q.shape)])
+
+    def _decode_attention(self, q, kc, vc, kpos, pos, lengths, *,
+                          window: int = 0, softcap: float = 0.0):
+        """One query token q (b, 1, h, dh) against a cache (b, S, kv, dh) on
+        each rank's heads: the decode kernel on the card (``lengths``
+        valid rows), ``layers.decode_attention`` on the CPU (``kpos`` /
+        ``pos``).  A cache whose sequence is split over ranks (long-context
+        decode) takes the plain version on DTensors: the kernel returns no
+        softmax statistics to merge across the split."""
+        q = self.sh(q, "batch", "seq", "heads", None)
+        if isinstance(kc, DTensor) and any(p.is_shard(1)
+                                           for p in kc.placements):
+            return L.decode_attention(q, kc, vc, kpos, pos, window=window,
+                                      cap=softcap)
+        h0, g = local_offset(q, 2), q.shape[2] // kc.shape[2]
+        kernel = _on_kernels(q)
+
+        def attend(ql, kl, vl, kp, ps, ln):
+            kl, vl = _kv_for_heads(kl, vl, h0, ql.shape[2], g)
+            if kernel:
+                return decode_attention(ql[:, 0].contiguous(),
+                                        kl.contiguous(), vl.contiguous(), ln,
+                                        window=window,
+                                        softcap=softcap)[:, None]
+            return L.decode_attention(ql, kl, vl, kp, ps, window=window,
+                                      cap=softcap)
+
+        kv_axes = ("batch", "kvseq", "kv_heads", None)
+        return self.sh.local_call(
+            attend, [(q, ("batch", "seq", "heads", None)), (kc, kv_axes),
+                     (vc, kv_axes), (kpos, ("batch", "kvseq")),
+                     (pos, ("batch",)), (lengths, ("batch",))],
+            [(("batch", "seq", "heads", None), q.shape)])
 
     def _attn_part(self, x, p, spec: LayerSpec, *, mode, cache, pos):
         cfg = self.cfg
-        b, sq, _ = x.shape
-        h = L.apply_norm(x, p["ln"], cfg)
+        sq = x.shape[1]
+        h = self.sh(L.apply_norm(x, p["ln"], cfg), "batch", "seq", None)
         if mode == "decode":
             positions = pos[:, None]                      # (b,1)
         else:
             positions = torch.arange(sq, device=x.device)[None, :]
         q, k, v = self._project_qkv(h, p, positions)
-        on_card = x.device.type == "cuda"
 
         if mode == "decode":
-            # the cache tensors are views into the stacked cache: written
-            # in place, slot = pos % sc
             sc = cache["k"].shape[1]
-            idx = pos % sc
-            barange = torch.arange(b, device=x.device)
-            cache["k"][barange, idx] = k[:, 0]
-            cache["v"][barange, idx] = v[:, 0]
-            cache["kpos"][barange, idx] = pos.to(torch.int32)
-            if on_card:
-                lengths = torch.clamp(pos + 1, max=sc).to(torch.int32)
-                o = decode_attention(q[:, 0].contiguous(), cache["k"],
-                                     cache["v"], lengths, window=spec.window,
-                                     softcap=cfg.attn_softcap)[:, None]
-            else:
-                o = L.decode_attention(q, cache["k"], cache["v"],
-                                       cache["kpos"], pos, window=spec.window,
-                                       cap=cfg.attn_softcap)
+            self._ring_write(cache, k, v, pos)
+            lengths = torch.clamp(pos + 1, max=sc).to(torch.int32)
+            o = self._decode_attention(q, cache["k"], cache["v"],
+                                       cache["kpos"], pos, lengths,
+                                       window=spec.window,
+                                       softcap=cfg.attn_softcap)
         else:
-            if on_card:
-                o = flash_attention(q, k, v, causal=spec.causal,
-                                    window=spec.window,
-                                    softcap=cfg.attn_softcap)
-            else:
-                o = L.blocked_attention(q, k, v, causal=spec.causal,
-                                        window=spec.window,
-                                        cap=cfg.attn_softcap,
-                                        q_blocks=cfg.attn_q_blocks)
+            o = self._attention(q, k, v, causal=spec.causal,
+                                window=spec.window, softcap=cfg.attn_softcap)
             if mode == "prefill":
                 self._fill_cache(cache, k, v)
-        bs = b * sq
-        out = (o.reshape(bs, -1) @ p["wo"].reshape(-1, cfg.d_model)) \
-            .view(b, sq, cfg.d_model)
+        out = self._out_proj(o, p["wo"])
         if cfg.post_block_norm:
             out = L.apply_norm(out, p["post_ln"], cfg)
         return x + out
 
-    @staticmethod
-    def _fill_cache(cache, k, v) -> None:
-        """Write the last min(s, sc) prefill positions in ring order."""
+    def _ring_write(self, cache, k, v, pos) -> None:
+        """Write one step's k/v (b, 1, kv, dh) and positions into slot
+        pos % sc of the cache views, in place: each rank its own rows.  A
+        rank holding a slice of a split ring writes only the slots in it."""
+        sc = cache["k"].shape[1]
+        lo = local_offset(cache["k"], 1)
+        kc, vc, kp = (_local(cache[n]) for n in ("k", "v", "kpos"))
+        k = _local(self.sh(k[:, 0], "batch", "kv_heads", None))
+        v = _local(self.sh(v[:, 0], "batch", "kv_heads", None))
+        pos = _local(self.sh(pos, "batch"))
+        rows = torch.arange(kc.shape[0], device=kc.device)
+        slot = pos % sc
+        kpos = pos.to(torch.int32)
+        if kc.shape[1] < sc:                      # a slice of a split ring
+            slot = slot - lo
+            mine = (slot >= 0) & (slot < kc.shape[1])
+            slot = slot.clamp(0, kc.shape[1] - 1)
+            k = torch.where(mine[:, None, None], k, kc[rows, slot])
+            v = torch.where(mine[:, None, None], v, vc[rows, slot])
+            kpos = torch.where(mine, kpos, kp[rows, slot])
+        kc[rows, slot] = k
+        vc[rows, slot] = v
+        kp[rows, slot] = kpos
+
+    def _fill_cache(self, cache, k, v) -> None:
+        """Write the last min(s, sc) prefill positions in ring order, in
+        place: each rank its own rows and kv heads."""
         b, s = k.shape[:2]
         sc = cache["k"].shape[1]
+        if _local(cache["k"]).shape[1] < sc:
+            raise NotImplementedError("prefill into a cache whose sequence "
+                                      "is split over ranks")
         take = min(s, sc)
-        positions = torch.arange(s - take, s, device=k.device)
+        kc, vc, kp = (_local(cache[n]) for n in ("k", "v", "kpos"))
+        k = _local(self.sh(k, "batch", "seq", "kv_heads", None))
+        v = _local(self.sh(v, "batch", "seq", "kv_heads", None))
+        positions = torch.arange(s - take, s, device=kc.device)
         slots = positions % sc
-        cache["k"][:, slots] = k[:, s - take:]
-        cache["v"][:, slots] = v[:, s - take:]
-        cache["kpos"][:, slots] = positions.to(torch.int32)
+        kc[:, slots] = k[:, s - take:]
+        vc[:, slots] = v[:, s - take:]
+        kp[:, slots] = positions.to(torch.int32)
 
     def _cross_part(self, x, p, *, mode, cache, enc_out):
         """Cross-attention to the encoder output: no RoPE, qk-norm, window
@@ -265,37 +416,35 @@ class Model:
         is not applied, as in the reference."""
         cfg = self.cfg
         b, sq, _ = x.shape
-        h = L.apply_norm(x, p["ln"], cfg)
-        q = _proj(h, p["wq"])
+        h = self.sh(L.apply_norm(x, p["ln"], cfg), "batch", "seq", None)
+        q = self._proj(h, p["wq"], ("heads", None))
         if mode == "decode":
             ck, cv = cache["ck"], cache["cv"]
         else:
-            ck, cv = _proj(enc_out, p["wk"]), _proj(enc_out, p["wv"])
+            enc_out = self.sh(enc_out, "batch", "frames", None)
+            ck = self._proj(enc_out, p["wk"], ("kv_heads", None))
+            cv = self._proj(enc_out, p["wv"], ("kv_heads", None))
             if mode == "prefill":
-                cache["ck"].copy_(ck)
-                cache["cv"].copy_(cv)
-        if x.device.type != "cuda":
-            o = L.blocked_attention(q, ck, cv, causal=False,
-                                    q_blocks=cfg.attn_q_blocks)
-        elif mode == "decode":
+                axes = ("batch", "frames", "kv_heads", None)
+                cache["ck"].copy_(self.sh(ck, *axes))
+                cache["cv"].copy_(self.sh(cv, *axes))
+        if mode == "decode" and _on_kernels(x):
             lengths = torch.full((b,), ck.shape[1], dtype=torch.int32,
                                  device=x.device)
-            o = decode_attention(q[:, 0].contiguous(), ck, cv,
-                                 lengths)[:, None]
+            o = self._decode_attention(q, ck, cv, None, None, lengths)
         else:
-            o = flash_attention(q, ck, cv, causal=False)
-        out = (o.reshape(b * sq, -1) @ p["wo"].reshape(-1, cfg.d_model)) \
-            .view(b, sq, cfg.d_model)
-        return x + out
+            o = self._attention(q, ck, cv, causal=False)
+        return x + self._out_proj(o, p["wo"])
 
     def _mlp_part(self, x, p, spec: LayerSpec):
         """-> (x + MLP(x), aux loss: 0 for a dense MLP)."""
         cfg = self.cfg
-        h = L.apply_norm(x, p["ln"], cfg)
+        h = self.sh(L.apply_norm(x, p["ln"], cfg), "batch", "seq", None)
         if spec.moe:
-            y, aux = L.moe_mlp(h, p, cfg)
+            y, aux = L.moe_mlp(h, p, cfg, sh=self.sh)
         else:
-            y, aux = L.mlp(h, p, cfg), 0.0
+            y, aux = L.mlp(h, p, cfg, sh=self.sh), 0.0
+        y = self.sh(y, "batch", "seq", None)
         if cfg.post_block_norm:
             y = L.apply_norm(y, p["post_ln"], cfg)
         return x + y, aux
@@ -304,16 +453,17 @@ class Model:
         """SSD mixer; prefill and decode write the conv tail and the state
         into the cache views in place."""
         cfg = self.cfg
-        h = L.apply_norm(x, p["ln"], cfg)
+        h = self.sh(L.apply_norm(x, p["ln"], cfg), "batch", "seq", None)
         if mode == "train":
-            return x + S.ssd_forward(h, p, cfg)
+            return x + S.ssd_forward(h, p, cfg, sh=self.sh)
         if mode == "prefill":
-            y, (conv, state) = S.ssd_forward(h, p, cfg, return_state=True)
+            y, (conv, state) = S.ssd_forward(h, p, cfg, return_state=True,
+                                             sh=self.sh)
         else:
             y, (conv, state) = S.ssd_decode(h, p, cfg, cache["conv"],
                                             cache["state"])
-        cache["conv"].copy_(conv)
-        cache["state"].copy_(state)
+        cache["conv"].copy_(self.sh(conv, "batch", None, None))
+        cache["state"].copy_(self.sh(state, "batch", "heads", None, None))
         return x + y
 
     def apply_block(self, x, p, spec: LayerSpec, *, mode, cache=None,
@@ -346,7 +496,7 @@ class Model:
                 cache=None if cache is None else cache[key], pos=pos,
                 enc_out=enc_out)
             aux = aux + a
-        return x, aux
+        return self.sh(x, "batch", "act_seq", None), aux
 
     def _run_blocks(self, x, blocks, *, mode, cache=None, pos=None,
                     enc_out=None, cycle=None):
@@ -378,29 +528,42 @@ class Model:
         """The encoder over frame embeddings (b, frames, d): non-causal
         attention blocks, then the encoder's final norm."""
         enc = params["encoder"]
-        x, _ = self._run_blocks(enc_embeds, enc["blocks"], mode="encode",
+        x = self.sh(enc_embeds, "batch", "frames", None)
+        x, _ = self._run_blocks(x, enc["blocks"], mode="encode",
                                 cycle=ENCODER_CYCLE)
         return L.apply_norm(x, enc["final_norm"], self.cfg)
 
     def head_weights(self, params):
-        """(d_model, vocab) output projection."""
-        return params["embed"].T if self.cfg.tie_embeddings \
+        """(d_model, vocab) output projection, constrained to (replicated,
+        vocab-sharded), as the reference's."""
+        w = params["embed"].T if self.cfg.tie_embeddings \
             else params["lm_head"]
+        return self.sh(w, None, "vocab")
 
     def _head(self, x, params):
         cfg = self.cfg
         x = L.apply_norm(x, params["final_norm"], cfg)
         logits = x @ self.head_weights(params)
-        return L.softcap(logits.to(f32), cfg.final_softcap)
+        logits = L.softcap(logits.to(f32), cfg.final_softcap)
+        return self.sh(logits, "batch", "seq", "vocab")
 
     def _embed(self, params, tokens):
         cfg = self.cfg
-        x = params["embed"][tokens].to(DTYPES[cfg.dtype])
+        tokens = self.sh(tokens, "batch", "seq")
+        # an embedding, not an index: DTensor (torch 2.11) has no working
+        # rule for the index's backward (index_put) on a sharded table
+        x = F.embedding(tokens, params["embed"]).to(DTYPES[cfg.dtype])
         if cfg.embed_scale:
             x = x * math.sqrt(cfg.d_model)
-        return x
+        return self.sh(x, "batch", "act_seq", None)
 
     # ------------------------------------------------------------ entries
+    def _inference(self):
+        """``inference_mode``, or ``no_grad`` for a sharded model: DTensor
+        views cannot be made under ``inference_mode``."""
+        return torch.inference_mode() if self.sh.mesh is None \
+            else torch.no_grad()
+
     def forward_hidden(self, params, tokens, enc_embeds=None):
         """The train pass, with autograd: final-norm hidden states
         (b, s, d) and the aux loss (the MoE blocks' sum, 0 without MoE);
@@ -412,42 +575,45 @@ class Model:
             raise NotImplementedError(
                 f"{cfg.name}: training SSM blocks on the card needs the SSD "
                 f"backward kernel (ROADMAP B6)")
-        enc_out = self.encode(params, enc_embeds) if self.cfg.encoder \
-            else None
-        x = self._embed(params, tokens)
-        x, aux = self._run_blocks(x, params["blocks"], mode="train",
-                                  enc_out=enc_out)
-        return L.apply_norm(x, params["final_norm"], cfg), aux
+        with self.sh.region():
+            enc_out = self.encode(params, enc_embeds) if self.cfg.encoder \
+                else None
+            x = self._embed(params, tokens)
+            x, aux = self._run_blocks(x, params["blocks"], mode="train",
+                                      enc_out=enc_out)
+            x = L.apply_norm(x, params["final_norm"], cfg)
+            # regather the sequence for the (vocab-parallel) chunked loss
+            return self.sh(x, "batch", "seq", None), aux
 
-    @torch.inference_mode()
     def forward(self, params, tokens, enc_embeds=None):
         """Teacher-forced pass -> (logits (b,s,V) fp32, aux loss)."""
-        enc_out = self.encode(params, enc_embeds) if self.cfg.encoder \
-            else None
-        x = self._embed(params, tokens)
-        x, aux = self._run_blocks(x, params["blocks"], mode="train",
-                                  enc_out=enc_out)
-        return self._head(x, params), aux
+        with self._inference(), self.sh.region():
+            enc_out = self.encode(params, enc_embeds) if self.cfg.encoder \
+                else None
+            x = self._embed(params, tokens)
+            x, aux = self._run_blocks(x, params["blocks"], mode="train",
+                                      enc_out=enc_out)
+            return self._head(x, params), aux
 
-    @torch.inference_mode()
     def prefill(self, params, tokens, cache_len: int | None = None,
                 enc_embeds=None):
         """Build the cache; returns (last-position logits (b,V), cache)."""
         cache_len = cache_len or tokens.shape[1]
-        cache = self._new_cache(tokens.shape[0], cache_len)
-        enc_out = self.encode(params, enc_embeds) if self.cfg.encoder \
-            else None
-        x = self._embed(params, tokens)
-        x, _ = self._run_blocks(x, params["blocks"], mode="prefill",
-                                cache=cache, enc_out=enc_out)
-        return self._head(x[:, -1:], params)[:, 0], cache
+        with self._inference(), self.sh.region():
+            cache = self._new_cache(tokens.shape[0], cache_len)
+            enc_out = self.encode(params, enc_embeds) if self.cfg.encoder \
+                else None
+            x = self._embed(params, tokens)
+            x, _ = self._run_blocks(x, params["blocks"], mode="prefill",
+                                    cache=cache, enc_out=enc_out)
+            return self._head(x[:, -1:], params)[:, 0], cache
 
-    @torch.inference_mode()
     def decode_step(self, params, cache, tokens, pos):
         """One token step. tokens: (b,), pos: (b,) -> (logits (b,V), cache).
 
         The cache is updated in place (and returned)."""
-        x = self._embed(params, tokens[:, None])
-        x, _ = self._run_blocks(x, params["blocks"], mode="decode",
-                                cache=cache, pos=pos)
-        return self._head(x, params)[:, 0], cache
+        with self._inference(), self.sh.region():
+            x = self._embed(params, tokens[:, None])
+            x, _ = self._run_blocks(x, params["blocks"], mode="decode",
+                                    cache=cache, pos=pos)
+            return self._head(x, params)[:, 0], cache

@@ -35,14 +35,27 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
 from repro_torch.kernels.ssd.ops import ssd_chunk_scan
 from repro_torch.models.config import ModelConfig, SSMConfig
 from repro_torch.models.layers import ACTS
 from repro_torch.models.param import ParamSpec
+from repro_torch.parallel.sharding import Sharder
 
 f32 = torch.float32
 _silu = ACTS["silu"]
+
+
+def _softplus(z):
+    """``F.softplus``; on a DTensor spelled out (log1p(exp(z)), z above 20),
+    whose pieces have sharding rules: ``softplus_backward`` has none.  The
+    exponent is clamped so the branch not taken stays finite (its zero
+    gradient times an infinite exp would be NaN)."""
+    if not isinstance(z, DTensor):
+        return F.softplus(z)
+    return torch.where(z > 20.0, z,
+                       torch.log1p(torch.exp(torch.clamp(z, max=20.0))))
 
 
 def ssm_template(cfg: ModelConfig) -> dict:
@@ -156,30 +169,47 @@ def _ssd_chunked(xh, dt, A, B, C, Q: int, init=None):
     return (y_intra + y_inter).reshape(b, L, h, p), state
 
 
-def ssd_scan(xh, dt, A, B, C, chunk: int, ssm_state=None):
+def ssd_scan(xh, dt, A, B, C, chunk: int, ssm_state=None, sh=None):
     """Pad the sequence to a multiple of Q = min(chunk, s) and run the chunk
-    scan from ``ssm_state`` (or zeros): the CUDA kernels on the card,
-    ``_ssd_chunked`` on the CPU.
+    scan from ``ssm_state`` (or zeros) on each rank's heads
+    (``Sharder.local_call``; B and C are shared by the heads of a group):
+    the CUDA kernels on the card, and on ``meta`` their meta branch (the dry
+    run) unless a gradient is needed, since the kernels have none (ROADMAP
+    B6); ``_ssd_chunked`` otherwise.
 
-    Returns (y (b,s,h,p): xh's dtype on the card, fp32 on the CPU; final
-    state (b,h,n,p) fp32).  Padded rows carry dt = 0, so they leave the
-    state as it was."""
-    seqlen = xh.shape[1]
+    Returns (y (b,s,h,p): xh's dtype from the kernels, fp32 from the
+    chunked path; final state (b,h,n,p) fp32).  Padded rows carry dt = 0,
+    so they leave the state as it was."""
+    b, seqlen, h, p = xh.shape
     Q = min(chunk, seqlen)
-    pad = (-seqlen) % Q
-    if pad:
-        xh, B, C = (F.pad(t, (0, 0, 0, 0, 0, pad)) for t in (xh, B, C))
-        dt = F.pad(dt, (0, 0, 0, pad))
-    if xh.device.type == "cuda":
-        init = None if ssm_state is None else ssm_state.float().contiguous()
-        y, state = ssd_chunk_scan(xh, dt, A, B, C, chunk=Q, init=init)
-    else:
-        y, state = _ssd_chunked(xh, dt, A, B, C, Q, ssm_state)
-    return y[:, :seqlen], state
+
+    def scan(xh, dt, A, B, C, init):
+        pad = (-seqlen) % Q
+        if pad:
+            xh, B, C = (F.pad(t, (0, 0, 0, 0, 0, pad)) for t in (xh, B, C))
+            dt = F.pad(dt, (0, 0, 0, pad))
+        dev = xh.device.type
+        if dev == "cuda" or dev == "meta" and not (
+                torch.is_grad_enabled() and any(
+                    t.requires_grad for t in (xh, dt, A, B, C))):
+            init = None if init is None else init.float().contiguous()
+            y, state = ssd_chunk_scan(xh, dt, A, B, C, chunk=Q, init=init)
+        else:
+            y, state = _ssd_chunked(xh, dt, A, B, C, Q, init)
+        return y[:, :seqlen], state
+
+    rows = ("batch", "seq", "heads", None)
+    return (sh or Sharder.null()).local_call(
+        scan, [(xh, rows), (dt, ("batch", "seq", "heads")), (A, ("heads",)),
+               (B, ("batch", "seq", None, None)),
+               (C, ("batch", "seq", None, None)),
+               (ssm_state, ("batch", "heads", None, None))],
+        [(rows, xh.shape),
+         (("batch", "heads", None, None), (b, h, B.shape[3], p))])
 
 
 def ssd_forward(x, p, cfg: ModelConfig, conv_state=None, ssm_state=None,
-                return_state: bool = False):
+                return_state: bool = False, sh=None):
     """Full-sequence SSD. x: (b, s, d_model) -> out, or
     (out, (conv_state, ssm_state)) with ``return_state``."""
     s: SSMConfig = cfg.ssm
@@ -187,10 +217,10 @@ def ssd_forward(x, p, cfg: ModelConfig, conv_state=None, ssm_state=None,
     z, conv_in = _split_proj(x, p, s)
     conv_out, conv_state_new = _causal_conv(conv_in, p["conv_w"], conv_state)
     xh, B, C = _post_conv(conv_out, s)
-    dt = F.softplus((x @ p["w_dt"]).to(f32) + p["dt_bias"].to(f32))  # (b,s,h)
+    dt = _softplus((x @ p["w_dt"]).to(f32) + p["dt_bias"].to(f32))  # (b,s,h)
     A = -torch.exp(p["a_log"].to(f32))                                 # (h,)
 
-    y, final_state = ssd_scan(xh, dt, A, B, C, s.chunk, ssm_state)
+    y, final_state = ssd_scan(xh, dt, A, B, C, s.chunk, ssm_state, sh=sh)
     y = y.to(f32) + xh * p["skip_d"].to(f32)[None, None, :, None]
     y = y.reshape(b, seqlen, s.d_inner).to(x.dtype)
     y = y * _silu(z)

@@ -11,18 +11,25 @@ The reference's ``repro/train/loop.py`` in torch:
 * **Gradient accumulation** — microbatches along axis 0, gradients summed
   in fp32 and averaged, the loss averaged.
 
-The reference's sharding hooks (vocab-parallel loss, ``grad_pspecs``) wait
-for the port's sharding (ROADMAP A14).
+Sharded (a ``Model`` built with a ``Sharder`` on a mesh, params and state
+placed as DTensors by ``Sharder.distribute``): the targets are constrained
+to (batch, seq) beside the model's tokens, the loss projects chunks onto
+the vocab-sharded head, and with ``grad_pspecs`` each gradient is
+redistributed to its parameter's placements before the optimizer, as the
+reference's ``pin``.  The step runs in ``Sharder.region`` (backward
+included).
 """
 
 from __future__ import annotations
 
 import torch
+from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models.model import Model
 from repro_torch.models.param import ParamSpec, tree_leaves, tree_map
 from repro_torch.optim import AdamWConfig, adamw_update
+from repro_torch.parallel.sharding import placements
 
 f32 = torch.float32
 
@@ -33,7 +40,16 @@ def _ce_chunk(h, head_w, t, final_softcap: float):
     if final_softcap:
         logits = torch.tanh(logits / final_softcap) * final_softcap
     lse = torch.logsumexp(logits, dim=-1)
-    tgt = torch.gather(logits, -1, t.clamp(min=0).long()[..., None])[..., 0]
+    idx = t.clamp(min=0).long()
+    if isinstance(logits, DTensor):
+        # DTensor's gather over the vocab-sharded dim cannot reduce its
+        # result (the mask it keeps has an embedding's shape): pick the
+        # target logit by a comparison with the vocab ids instead
+        vocab = torch.arange(logits.shape[-1], device=idx.device)
+        hit = vocab == idx[..., None]
+        tgt = torch.sum(torch.where(hit, logits, 0.0), dim=-1)
+    else:
+        tgt = torch.gather(logits, -1, idx[..., None])[..., 0]
     valid = (t >= 0).to(logits.dtype)
     return torch.stack([torch.sum((lse - tgt) * valid),
                         torch.sum(torch.square(lse) * valid),
@@ -74,7 +90,8 @@ def make_loss_fn(model: Model, *, ce_chunk: int = 512):
         hidden, aux = model.forward_hidden(
             params, batch["inputs"], enc_embeds=batch.get("enc_embeds"))
         loss, ce, n = chunked_cross_entropy(
-            hidden, model.head_weights(params), batch["targets"],
+            hidden, model.head_weights(params),
+            model.sh(batch["targets"], "batch", "seq"),
             final_softcap=cfg.final_softcap, chunk=ce_chunk)
         return loss + aux, {"ce": ce, "aux": aux, "tokens": n}
 
@@ -95,17 +112,33 @@ def _value_and_grad(loss_fn, params, batch):
 
 
 def make_train_step(model: Model, opt_cfg: AdamWConfig, *,
-                    grad_accum: int = 1, ce_chunk: int = 512):
+                    grad_accum: int = 1, ce_chunk: int = 512,
+                    grad_pspecs=None):
     """Returns train_step(params, opt_state, batch) -> (params, opt, metrics).
 
     With grad_accum > 1 the batch is split along axis 0 into microbatches
     whose gradients are summed in fp32 and averaged before the optimizer;
     the loss is the mean of theirs.  The update is in place
     (``adamw_update``): the returned params and state are the given ones.
+
+    grad_pspecs: optional ``PartitionSpec`` tree matching params (a sharded
+    model's) — each gradient is redistributed to its parameter's
+    placements before the optimizer.
     """
     loss_fn = make_loss_fn(model, ce_chunk=ce_chunk)
+    sh = model.sh
+
+    def pin(grads):
+        if grad_pspecs is None:
+            return grads
+        return _zip_map(lambda g, spec: g.redistribute(
+            sh.mesh, placements(spec, sh.mesh)), grads, grad_pspecs)
 
     def train_step(params, opt_state, batch):
+        with sh.region():
+            return step(params, opt_state, batch)
+
+    def step(params, opt_state, batch):
         if grad_accum == 1:
             loss, grads = _value_and_grad(loss_fn, params, batch)
         else:
@@ -120,6 +153,7 @@ def make_train_step(model: Model, opt_cfg: AdamWConfig, *,
                 lsum = lsum + lo
             grads = tree_map(lambda x: x / grad_accum, gsum)
             loss = lsum / grad_accum
+        grads = pin(grads)
         params, opt_state, om = adamw_update(params, grads, opt_state,
                                              opt_cfg)
         return params, opt_state, {"loss": loss, **om}
@@ -127,11 +161,16 @@ def make_train_step(model: Model, opt_cfg: AdamWConfig, *,
     return train_step
 
 
+def _zip_map(fn, a, b):
+    """Leafwise fn(a, b) of two trees with the same keys."""
+    if isinstance(a, dict):
+        return {k: _zip_map(fn, v, b[k]) for k, v in a.items()}
+    return fn(a, b)
+
+
 def _add(a, b):
     """Leafwise a + b of two trees with the same keys."""
-    if isinstance(a, dict):
-        return {k: _add(v, b[k]) for k, v in a.items()}
-    return a + b
+    return _zip_map(lambda x, y: x + y, a, b)
 
 
 def _opt_template(param_tpl) -> dict:
