@@ -1966,12 +1966,12 @@ def _sharded_grads(model, params, batch) -> tuple:
     return float(loss.detach()), full
 
 
-def _steps(model, params, state, batch, n: int, **kw) -> tuple:
+def _steps(model, params, state, batch, n: int) -> tuple:
     """``n`` train steps (phase 7's optimizer and loss chunk) on one batch
     -> (losses, step seconds, launches of each step)."""
     step = make_train_step(model, AdamWConfig(peak_lr=1e-3, warmup_steps=2,
                                               total_steps=10),
-                           ce_chunk=128, **kw)
+                           ce_chunk=128)
     losses, secs, launches = [], [], []
     for _ in range(n):
         zero_counts()
@@ -2096,8 +2096,7 @@ def phase_mesh(card: str, seed: int, stats: dict) -> dict:
                 for n, a, b in zip(names, grads_s, grads_p)}
         del grads_s, grads_p
         torch.cuda.empty_cache()
-        res_s = _steps(sharded, params, state, batch, 3,
-                       grad_pspecs=sh.template_pspecs(ptpl))
+        res_s = _steps(sharded, params, state, batch, 3)
         del params, state
         torch.cuda.empty_cache()
         out["train"] = dict(

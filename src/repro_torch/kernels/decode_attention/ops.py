@@ -2,10 +2,11 @@
 
 CPU tensors take the plain version (``ref.decode_attention_ref``); CUDA
 tensors launch the CUDA kernel or raise, also when an input requires grad
-while grad mode is on (the kernel has no backward); ``meta`` tensors (the
-dry run, under ``launch.cost``'s counter) get an output of the right
-shape, and the kernel's work over a full cache (every row within the
-window) goes to the counter.  ``decode_attention.launches``
+while grad mode is on (the kernel has no backward).  Past the CPU and the
+grad guard the call is the operator ``torch.ops.repro_torch.decode_attention``,
+whose one implementation launches the kernel on CUDA tensors and refuses
+any other device (``launch.cost``'s counter intercepts it on ``meta``
+tensors and counts its work by formula).  ``decode_attention.launches``
 counts the kernel launches (one per call: the split pass and its merge).
 """
 
@@ -17,7 +18,6 @@ import functools
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.launch import cost
 from repro_torch.kernels.decode_attention.ref import decode_attention_ref
 
 HEAD_DIMS = (64, 128)
@@ -68,6 +68,7 @@ def _num_sms(index: int) -> int:
 
 
 def _check(q, k_cache, v_cache, lengths):
+    """Shapes and dtypes, whatever the device."""
     if q.dim() != 3 or k_cache.dim() != 4 or k_cache.shape != v_cache.shape:
         raise ValueError(f"want q (b,h,dh), k/v cache (b,S,kv,dh); got "
                          f"{tuple(q.shape)}, {tuple(k_cache.shape)}, "
@@ -77,9 +78,6 @@ def _check(q, k_cache, v_cache, lengths):
     if k_cache.shape[0] != b or k_cache.shape[3] != dh or h % kv:
         raise ValueError(f"shapes do not pair: q {tuple(q.shape)}, "
                          f"cache {tuple(k_cache.shape)}")
-    if dh not in HEAD_DIMS and not cost.counting(q):
-        raise ValueError(f"head_dim {dh} not supported by the CUDA kernel "
-                         f"(supported: {HEAD_DIMS})")
     if h // kv > MAX_GROUP:
         raise ValueError(f"{h // kv} query heads per kv head; the kernel "
                          f"serves at most {MAX_GROUP}")
@@ -89,8 +87,13 @@ def _check(q, k_cache, v_cache, lengths):
                         f"{v_cache.dtype}: want all float32 or all bfloat16")
     if lengths.dtype != torch.int32 or tuple(lengths.shape) != (b,):
         raise TypeError(f"lengths must be int32 of shape ({b},)")
-    if cost.counting(q):
-        return
+
+
+def _check_launch(q, k_cache, v_cache, lengths):
+    """What the card's kernel takes besides: head_dim, device, layout."""
+    if q.shape[2] not in HEAD_DIMS:
+        raise ValueError(f"head_dim {q.shape[2]} not supported by the CUDA "
+                         f"kernel (supported: {HEAD_DIMS})")
     for name, t in (("q", q), ("k_cache", k_cache), ("v_cache", v_cache),
                     ("lengths", lengths)):
         if not t.is_cuda or t.device != q.device:
@@ -115,13 +118,19 @@ def decode_attention(q, k_cache, v_cache, lengths, *, window: int = 0,
             "under torch.no_grad() or torch.inference_mode() (its output "
             "would carry no gradient)")
     _check(q, k_cache, v_cache, lengths)
+    return torch.ops.repro_torch.decode_attention(
+        q, k_cache, v_cache, lengths, int(window), float(softcap))
+
+
+decode_attention.launches = 0
+
+
+def _op(q, k_cache, v_cache, lengths, window, softcap):
+    """``repro_torch::decode_attention``: one launch (the split pass and
+    its merge) -> (b, h, dh)."""
+    _check_launch(q, k_cache, v_cache, lengths)
     b, h, dh = q.shape
     S, kv = k_cache.shape[1], k_cache.shape[2]
-    if cost.counting(q):
-        rows = b * (min(window, S) if window else S)
-        cost.count_kernel("decode_attention", *cost.decode_work(
-            rows, b, h, kv, dh, q.element_size()))
-        return torch.empty_like(q)
     chunk, nsplit = split_plan(S, _num_sms(q.device.index), b * kv)
     out = torch.empty_like(q)
     part_m = torch.empty((b, h, nsplit), dtype=torch.float32, device=q.device)
@@ -139,4 +148,8 @@ def decode_attention(q, k_cache, v_cache, lengths, *, window: int = 0,
     return out
 
 
-decode_attention.launches = 0
+# the operator, one implementation for every device (the kernel checks it)
+_lib = torch.library.Library("repro_torch", "FRAGMENT")
+_lib.define("decode_attention(Tensor q, Tensor k_cache, Tensor v_cache, "
+            "Tensor lengths, int window, float softcap) -> Tensor")
+_lib.impl("decode_attention", _op, "CompositeExplicitAutograd")

@@ -1,10 +1,12 @@
 """Public wrappers of the flash attention kernels, forward and backward.
 
 CPU tensors take the plain versions (``ref.attention_ref``,
-``ref.attention_bwd_ref``); CUDA tensors launch the CUDA kernels or raise;
-``meta`` tensors under ``launch.cost``'s counter (the dry run) get
-outputs of the right shape, and the kernels' work goes to the counter,
-uncounted as launches.
+``ref.attention_bwd_ref``); other tensors go to the operators
+``torch.ops.repro_torch.flash_attention`` / ``.flash_attention_bwd``,
+whose one implementation launches the CUDA kernels on CUDA tensors and
+refuses any other device.  (``launch.cost``'s counter intercepts the
+operators on ``meta`` tensors, before that implementation, and counts
+their work by formula.)
 ``flash_attention`` on CUDA inputs that need a gradient (grad mode on and
 an input requiring grad) goes through ``FlashAttentionFn``: the forward
 kernel also writes the row log-sum-exp, and the backward is the
@@ -23,7 +25,6 @@ import functools
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.launch import cost
 from repro_torch.kernels.flash_attention.ref import (attention_bwd_ref,
                                                      attention_ref)
 
@@ -78,6 +79,7 @@ def _check_tensor(name, t, device):
 
 
 def _check(q, k, v):
+    """Shapes and dtypes, whatever the device."""
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
         raise ValueError(f"want q (b,sq,h,dh), k/v (b,sk,kv,dh); got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
@@ -88,41 +90,42 @@ def _check(q, k, v):
     if q.dtype not in _ENTRY or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"dtypes {q.dtype}, {k.dtype}, {v.dtype}: want all "
                         "float32 or all bfloat16")
-    if cost.counting(q):            # counted at any head_dim (ROADMAP B1w)
-        return
-    if dh not in HEAD_DIMS:
-        raise ValueError(f"head_dim {dh} not supported by the CUDA kernel "
-                         f"(supported: {HEAD_DIMS})")
+
+
+def _check_launch(q, k, v):
+    """What the card's kernels take besides: head_dim, device, layout."""
+    if q.shape[3] not in HEAD_DIMS:
+        raise ValueError(f"head_dim {q.shape[3]} not supported by the CUDA "
+                         f"kernel (supported: {HEAD_DIMS})")
     for name, t in (("q", q), ("k", k), ("v", v)):
         _check_tensor(name, t, q.device)
 
 
-def _shape_args(q, k, causal, window) -> tuple:
+def _fwd_op(q, k, v, causal, window, softcap, with_lse):
+    """``repro_torch::flash_attention``: one forward launch -> (out, lse
+    (b, h, sq) fp32, or an empty tensor without ``with_lse``)."""
+    _check_launch(q, k, v)
     b, sq, h, dh = q.shape
-    return (b, sq, k.shape[1], h, k.shape[2], dh, causal, window,
-            q.element_size())
+    sk, kv = k.shape[1], k.shape[2]
+    out = torch.empty_like(q)
+    lse = torch.empty((b, h, sq) if with_lse else (0,), dtype=torch.float32,
+                      device=q.device)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = _entry(q.dtype)(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        lse.data_ptr() if with_lse else None, b, sq, sk, h, kv, dh,
+        int(causal), int(window), float(softcap), stream)
+    flash_attention.launches += 1
+    _build.check(err, "flash_attention")
+    return out, lse
 
 
 def _launch_fwd(q, k, v, causal, window, softcap, with_lse):
     """One forward launch -> (out, lse (b, h, sq) fp32 or None)."""
     _check(q, k, v)
-    b, sq, h, dh = q.shape
-    sk, kv = k.shape[1], k.shape[2]
-    out = torch.empty_like(q)
-    lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device) \
-        if with_lse else None
-    if cost.counting(q):
-        cost.count_kernel("flash_attention",
-                          *cost.flash_work(*_shape_args(q, k, causal, window)))
-        return out, lse
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = _entry(q.dtype)(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        None if lse is None else lse.data_ptr(), b, sq, sk, h, kv, dh,
-        int(causal), int(window), float(softcap), stream)
-    flash_attention.launches += 1
-    _build.check(err, "flash_attention")
-    return out, lse
+    out, lse = torch.ops.repro_torch.flash_attention(
+        q, k, v, bool(causal), int(window), float(softcap), bool(with_lse))
+    return out, lse if with_lse else None
 
 
 def _needs_grad(*tensors) -> bool:
@@ -161,9 +164,12 @@ def _check_bwd(q, k, v, out, dout, lse):
     if lse.shape != (b, h, sq) or lse.dtype != torch.float32:
         raise ValueError(f"lse {tuple(lse.shape)} {lse.dtype}: want "
                          f"({b}, {h}, {sq}) float32")
-    if not cost.counting(q):
-        for name, t in (("out", out), ("dout", dout), ("lse", lse)):
-            _check_tensor(name, t, q.device)
+
+
+def _check_bwd_launch(q, k, v, out, dout, lse):
+    _check_launch(q, k, v)
+    for name, t in (("out", out), ("dout", dout), ("lse", lse)):
+        _check_tensor(name, t, q.device)
 
 
 def bwd_buffers(q, k):
@@ -194,21 +200,36 @@ def flash_attention_bwd(q, k, v, out, dout, lse, *, causal: bool = True,
         return attention_bwd_ref(q, k, v, dout, causal=causal, window=window,
                                  softcap=softcap)
     _check_bwd(q, k, v, out, dout, lse)
+    return torch.ops.repro_torch.flash_attention_bwd(
+        q, k, v, out, dout, lse, bool(causal), int(window), float(softcap))
+
+
+flash_attention_bwd.launches = 0
+
+
+def _bwd_op(q, k, v, o, dout, lse, causal, window, softcap):
+    """``repro_torch::flash_attention_bwd``: one backward call (three
+    kernels) -> (dq, dk, dv)."""
+    _check_bwd_launch(q, k, v, o, dout, lse)
     buffers = bwd_buffers(q, k)
-    if cost.counting(q):
-        cost.count_kernel("flash_attention_bwd", *cost.flash_bwd_work(
-            *_shape_args(q, k, causal, window)))
-        return buffers[:3]
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = _bwd_entry(q.dtype)(
-        *_bwd_args(q, k, v, out, dout, lse, buffers, causal, window, softcap),
+        *_bwd_args(q, k, v, o, dout, lse, buffers, causal, window, softcap),
         stream)
     flash_attention_bwd.launches += 1
     _build.check(err, "flash_attention_bwd")
     return buffers[:3]
 
 
-flash_attention_bwd.launches = 0
+# the operators, one implementation for every device (the kernels check it)
+_lib = torch.library.Library("repro_torch", "FRAGMENT")
+_lib.define("flash_attention(Tensor q, Tensor k, Tensor v, bool causal, "
+            "int window, float softcap, bool with_lse) -> (Tensor, Tensor)")
+_lib.define("flash_attention_bwd(Tensor q, Tensor k, Tensor v, Tensor o, "
+            "Tensor dout, Tensor lse, bool causal, int window, "
+            "float softcap) -> (Tensor, Tensor, Tensor)")
+_lib.impl("flash_attention", _fwd_op, "CompositeExplicitAutograd")
+_lib.impl("flash_attention_bwd", _bwd_op, "CompositeExplicitAutograd")
 
 
 def launch_bwd_bf16(q, k, v, out, dout, lse, buffers, *, causal: bool = True,
@@ -221,6 +242,7 @@ def launch_bwd_bf16(q, k, v, out, dout, lse, buffers, *, causal: bool = True,
     if q.dtype != torch.bfloat16:
         raise TypeError(f"launch_bwd_bf16 takes bfloat16, not {q.dtype}")
     _check_bwd(q, k, v, out, dout, lse)
+    _check_bwd_launch(q, k, v, out, dout, lse)
     err = _bwd_stages_entry()(
         *_bwd_args(q, k, v, out, dout, lse, buffers, causal, window, softcap),
         stages, torch.cuda.current_stream(q.device).cuda_stream)

@@ -2,10 +2,13 @@
 
 CPU tensors take the plain version (``ref.ssd_ref``); CUDA tensors launch
 the CUDA kernels or raise, also when an input requires grad while grad mode
-is on (the backward is ROADMAP B6); ``meta`` tensors under
-``launch.cost``'s counter (the dry run) get outputs of the right shape,
-and the kernels' work goes to the counter.  ``ssd_chunk_scan.launches`` counts calls of the
-op that launched on the card: one per call, whatever the number of kernels.
+is on (the backward is ROADMAP B6).  Past the CPU, the grad guard and the
+operand checks the call is the operator ``torch.ops.repro_torch.ssd_chunk_scan``,
+whose one implementation launches the kernels on CUDA tensors and refuses
+any other device (``launch.cost``'s counter intercepts it on ``meta``
+tensors and counts its work by formula).  ``ssd_chunk_scan.launches``
+counts calls of the op that launched on the card: one per call, whatever
+the number of kernels.
 
 * bf16 x/B/C: three kernels per call (``csrc/ssd.cu``): chunk states, the
   state pass over the chunks, and the chunk scan.  The wrapper allocates y,
@@ -28,7 +31,6 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.ssd.ref import ssd_ref
-from repro_torch.launch import cost
 
 SMEM_LIMIT = 232_448        # shared memory one block may opt into (H100)
 TILES = (64, 32, 16)        # fp32 kernel: chunk rows per tile, the largest that fits
@@ -282,15 +284,18 @@ def ssd_chunk_scan(x, dt, A, B, C, *, chunk: int = 256, init=None):
             "ssd_chunk_scan: the CUDA kernels have no backward yet (ROADMAP "
             "B6); call them under torch.no_grad() or torch.inference_mode()")
     check_operands(x, dt, A, B, C, init)
+    return torch.ops.repro_torch.ssd_chunk_scan(x, dt, A, B, C, q, init)
+
+
+ssd_chunk_scan.launches = 0
+
+
+def _op(x, dt, A, B, C, q, init):
+    """``repro_torch::ssd_chunk_scan`` over chunks of ``q`` rows: one call
+    (three bf16 kernels or one fp32) -> (y, final state)."""
+    _check_device(x, dt, A, B, C, init)
     b, s, h, p = x.shape
     g, n = B.shape[2], B.shape[3]
-    if cost.counting(x):
-        cost.count_kernel("ssd_chunk_scan", *cost.ssd_work(
-            b, s, h, p, g, n, q, x.element_size(), init is not None))
-        return (torch.empty((b, s, h, p), dtype=x.dtype, device=x.device),
-                torch.empty((b, h, n, p), dtype=torch.float32,
-                            device=x.device))
-    _check_device(x, dt, A, B, C, init)
     if x.dtype == torch.bfloat16:
         buffers = bf16_buffers(x, B, q)
         ssd_chunk_scan.launches += 1
@@ -309,4 +314,8 @@ def ssd_chunk_scan(x, dt, A, B, C, *, chunk: int = 256, init=None):
     return y, state
 
 
-ssd_chunk_scan.launches = 0
+# the operator, one implementation for every device (the kernels check it)
+_lib = torch.library.Library("repro_torch", "FRAGMENT")
+_lib.define("ssd_chunk_scan(Tensor x, Tensor dt, Tensor A, Tensor B, "
+            "Tensor C, int chunk, Tensor? init) -> (Tensor, Tensor)")
+_lib.impl("ssd_chunk_scan", _op, "CompositeExplicitAutograd")

@@ -194,9 +194,7 @@ def build_step(cfg, cell: ShapeCell, sh: Sharder, *,
         btpl = {"inputs": tok_tpl, "targets": tok_tpl}
         if enc_tpl:
             btpl["enc_embeds"] = enc_tpl
-        step = make_train_step(
-            model, AdamWConfig(), grad_accum=grad_accum,
-            grad_pspecs=None if sh.mesh is None else params_pspecs)
+        step = make_train_step(model, AdamWConfig(), grad_accum=grad_accum)
         return CellBuild(
             arch, shape, "train_step", step,
             (params, _meta(sh, otpl), _meta(sh, btpl)),

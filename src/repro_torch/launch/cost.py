@@ -22,9 +22,10 @@ are one device's, not the global ones.  Per op:
   tensor goes), whose peak is the step's temporary memory.
 
 The hand-written kernels are counted by formula, whatever device runs
-them: their meta branches (``kernels/*/ops.py``, taken under a counter)
-return outputs of the right shape and add their useful work here
-(``count_kernel``).  The
+them: each is an operator ``torch.ops.repro_torch.<name>``
+(``kernels/*/ops.py``), which the counter intercepts before its
+implementation runs; ``KERNELS`` gives, from the operator's arguments,
+its outputs (empty, of the right shape) and its useful work.  The
 formulas are the ones ``chip_smoke.py`` takes for each kernel's bound.
 """
 
@@ -37,8 +38,7 @@ import torch
 import torch.distributed as dist
 from torch.distributed.distributed_c10d import _resolve_process_group
 from torch.distributed.tensor import DTensor
-from torch.utils._python_dispatch import (TorchDispatchMode,
-                                          _get_current_dispatch_mode_stack)
+from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils.flop_counter import flop_registry
 
 NODE_GPUS = 8        # GPUs of one node, joined by NVLink (H100 HGX)
@@ -95,20 +95,44 @@ def ssd_work(b, s, h, p, g, n, chunk, itemsize=2, init=False) -> tuple:
     return flops, nbytes
 
 
-def counting(t) -> bool:
-    """Whether a kernel wrapper called on ``t`` is being counted: ``t`` is
-    on ``meta`` and a ``CostCounter`` is active.  Elsewhere a meta tensor
-    is one more device the kernels refuse."""
-    return t.device.type == "meta" and any(
-        isinstance(m, CostCounter) for m in _get_current_dispatch_mode_stack())
+def _flash(q, k, v, causal, window, softcap, with_lse):
+    b, sq, h, dh = q.shape
+    lse = q.new_empty((b, h, sq) if with_lse else (0,), dtype=torch.float32)
+    return ((torch.empty_like(q), lse),
+            flash_work(b, sq, k.shape[1], h, k.shape[2], dh, causal, window,
+                       q.element_size()))
 
 
-def count_kernel(name: str, flops: float, nbytes: float) -> None:
-    """Add one hand-written kernel call's work to every active
-    ``CostCounter`` (a kernel's meta branch calls this)."""
-    for mode in _get_current_dispatch_mode_stack():
-        if isinstance(mode, CostCounter):
-            mode.add_kernel(name, flops, nbytes)
+def _flash_bwd(q, k, v, o, dout, lse, causal, window, softcap):
+    b, sq, h, dh = q.shape
+    return ((torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)),
+            flash_bwd_work(b, sq, k.shape[1], h, k.shape[2], dh, causal,
+                           window, q.element_size()))
+
+
+def _decode(q, k_cache, v_cache, lengths, window, softcap):
+    """Counted over a full cache (every row within the window): a meta
+    run has no lengths to read."""
+    b, h, dh = q.shape
+    S, kv = k_cache.shape[1], k_cache.shape[2]
+    rows = b * (min(window, S) if window else S)
+    return (torch.empty_like(q),
+            decode_work(rows, b, h, kv, dh, q.element_size()))
+
+
+def _ssd(x, dt, A, B, C, chunk, init):
+    b, s, h, p = x.shape
+    g, n = B.shape[2], B.shape[3]
+    return ((x.new_empty((b, s, h, p)),
+             x.new_empty((b, h, n, p), dtype=torch.float32)),
+            ssd_work(b, s, h, p, g, n, chunk, x.element_size(),
+                     init is not None))
+
+
+# operator name in ``torch.ops.repro_torch`` -> its arguments -> (outputs,
+# (FLOPs, bytes))
+KERNELS = {"flash_attention": _flash, "flash_attention_bwd": _flash_bwd,
+           "decode_attention": _decode, "ssd_chunk_scan": _ssd}
 
 
 # ------------------------------------------------------------- the counter
@@ -161,6 +185,13 @@ class CostCounter(TorchDispatchMode):
             return func(*args, **kwargs)
         if any(issubclass(t, DTensor) for t in types):
             return NotImplemented       # count the local ops DTensor emits
+        if func.namespace == "repro_torch":
+            # a hand-written kernel: counted by formula, never run
+            name = func._overloadpacket.__name__
+            out, (flops, nbytes) = KERNELS[name](*args, **kwargs)
+            self.add_kernel(name, flops, nbytes)
+            self._track(_tensors(out))
+            return out
         if func._overloadpacket not in flop_registry:
             # a composite op (``matmul`` under inference_mode reaches the
             # mode whole): count the ops it decomposes into

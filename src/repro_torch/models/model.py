@@ -160,8 +160,17 @@ def _kv_for_heads(k, v, h0: int, h_loc: int, g: int):
 
 def _on_kernels(x) -> bool:
     """The card's dispatch: the CUDA kernels on the card, and on ``meta``
-    (the dry run) their meta branches, which count their work."""
+    (the dry run) their operators, which ``launch.cost``'s counter
+    intercepts and counts."""
     return x.device.type in ("cuda", "meta")
+
+
+def _split_seq(cache) -> bool:
+    """Whether a (b, S, ...) cache's sequence is split over more than one
+    rank (the same answer on every rank)."""
+    return isinstance(cache, DTensor) and any(
+        p.is_shard(1) and cache.device_mesh.size(i) > 1
+        for i, p in enumerate(cache.placements))
 
 
 def _flat_placements(pl) -> list:
@@ -311,11 +320,14 @@ class Model:
         each rank's heads: the decode kernel on the card (``lengths``
         valid rows), ``layers.decode_attention`` on the CPU (``kpos`` /
         ``pos``).  A cache whose sequence is split over ranks (long-context
-        decode) takes the plain version on DTensors: the kernel returns no
-        softmax statistics to merge across the split."""
+        decode) is refused on the card: the kernel returns no softmax
+        statistics to merge across the split.  On the CPU and on ``meta``
+        (the dry run) it takes the plain version on DTensors."""
         q = self.sh(q, "batch", "seq", "heads", None)
-        if isinstance(kc, DTensor) and any(p.is_shard(1)
-                                           for p in kc.placements):
+        if _split_seq(kc):
+            if kc.device.type == "cuda":
+                raise NotImplementedError("decode against a cache whose "
+                                          "sequence is split over ranks")
             return L.decode_attention(q, kc, vc, kpos, pos, window=window,
                                       cap=softcap)
         h0, g = local_offset(q, 2), q.shape[2] // kc.shape[2]
@@ -395,7 +407,7 @@ class Model:
         place: each rank its own rows and kv heads."""
         b, s = k.shape[:2]
         sc = cache["k"].shape[1]
-        if _local(cache["k"]).shape[1] < sc:
+        if _split_seq(cache["k"]):
             raise NotImplementedError("prefill into a cache whose sequence "
                                       "is split over ranks")
         take = min(s, sc)

@@ -35,7 +35,6 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
-from torch.distributed.tensor import DTensor
 
 from repro_torch.kernels.ssd.ops import ssd_chunk_scan
 from repro_torch.models.config import ModelConfig, SSMConfig
@@ -48,12 +47,10 @@ _silu = ACTS["silu"]
 
 
 def _softplus(z):
-    """``F.softplus``; on a DTensor spelled out (log1p(exp(z)), z above 20),
-    whose pieces have sharding rules: ``softplus_backward`` has none.  The
-    exponent is clamped so the branch not taken stays finite (its zero
-    gradient times an infinite exp would be NaN)."""
-    if not isinstance(z, DTensor):
-        return F.softplus(z)
+    """``F.softplus`` (log1p(exp(z)), z above 20) spelled out, so that a
+    DTensor finds a sharding rule for each piece: ``softplus_backward`` has
+    none.  The exponent is clamped so the branch not taken stays finite
+    (its zero gradient times an infinite exp would be NaN)."""
     return torch.where(z > 20.0, z,
                        torch.log1p(torch.exp(torch.clamp(z, max=20.0))))
 
@@ -173,9 +170,10 @@ def ssd_scan(xh, dt, A, B, C, chunk: int, ssm_state=None, sh=None):
     """Pad the sequence to a multiple of Q = min(chunk, s) and run the chunk
     scan from ``ssm_state`` (or zeros) on each rank's heads
     (``Sharder.local_call``; B and C are shared by the heads of a group):
-    the CUDA kernels on the card, and on ``meta`` their meta branch (the dry
-    run) unless a gradient is needed, since the kernels have none (ROADMAP
-    B6); ``_ssd_chunked`` otherwise.
+    the CUDA kernels on the card, and on ``meta`` (the dry run) their
+    operator unless a gradient is needed, since the kernels have none
+    (ROADMAP B6); ``_ssd_chunked`` otherwise (so the dry run counts an SSM
+    train step's scan as the chunked path's work).
 
     Returns (y (b,s,h,p): xh's dtype from the kernels, fp32 from the
     chunked path; final state (b,h,n,p) fp32).  Padded rows carry dt = 0,

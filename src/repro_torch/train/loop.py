@@ -14,10 +14,10 @@ The reference's ``repro/train/loop.py`` in torch:
 Sharded (a ``Model`` built with a ``Sharder`` on a mesh, params and state
 placed as DTensors by ``Sharder.distribute``): the targets are constrained
 to (batch, seq) beside the model's tokens, the loss projects chunks onto
-the vocab-sharded head, and with ``grad_pspecs`` each gradient is
-redistributed to its parameter's placements before the optimizer, as the
-reference's ``pin``.  The step runs in ``Sharder.region`` (backward
-included).
+the vocab-sharded head, and each gradient is redistributed to its
+parameter's placements (the ``Sharder``'s specs of the param template)
+before the optimizer, as the reference's ``pin`` with ``grad_pspecs``.
+The step runs in ``Sharder.region`` (backward included).
 """
 
 from __future__ import annotations
@@ -112,27 +112,26 @@ def _value_and_grad(loss_fn, params, batch):
 
 
 def make_train_step(model: Model, opt_cfg: AdamWConfig, *,
-                    grad_accum: int = 1, ce_chunk: int = 512,
-                    grad_pspecs=None):
+                    grad_accum: int = 1, ce_chunk: int = 512):
     """Returns train_step(params, opt_state, batch) -> (params, opt, metrics).
 
     With grad_accum > 1 the batch is split along axis 0 into microbatches
     whose gradients are summed in fp32 and averaged before the optimizer;
     the loss is the mean of theirs.  The update is in place
     (``adamw_update``): the returned params and state are the given ones.
-
-    grad_pspecs: optional ``PartitionSpec`` tree matching params (a sharded
-    model's) — each gradient is redistributed to its parameter's
-    placements before the optimizer.
+    For a sharded model each gradient is first redistributed to its
+    parameter's placements.
     """
     loss_fn = make_loss_fn(model, ce_chunk=ce_chunk)
     sh = model.sh
+    pspecs = None if sh.mesh is None \
+        else sh.template_pspecs(model.param_template())
 
     def pin(grads):
-        if grad_pspecs is None:
+        if pspecs is None:
             return grads
         return _zip_map(lambda g, spec: g.redistribute(
-            sh.mesh, placements(spec, sh.mesh)), grads, grad_pspecs)
+            sh.mesh, placements(spec, sh.mesh)), grads, pspecs)
 
     def train_step(params, opt_state, batch):
         with sh.region():

@@ -98,7 +98,7 @@ def test_counted_params_and_attention_bytes_equal_the_reference(arch):
 def test_counter_on_a_dense_smoke_prefill():
     """Counted dot FLOPs of yi-9b's smoke prefill on ``meta``: the
     projections (2 N per token, the head at the last position only) plus
-    the attention pairs, within 1%; the flash meta branch counted once a
+    the attention pairs, within 1%; the flash operator counted once a
     layer and launched nothing."""
     cfg = smoke_config("yi-9b")
     b, s = 2, 64
