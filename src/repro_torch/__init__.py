@@ -9,8 +9,18 @@ chunk scan of prefill through a hand-written CUDA kernel, the decode step
 in plain PyTorch.  Entry points run on ``cuda`` unless the
 caller passes ``device="cpu"``; on the CPU every kernel wrapper takes its
 plain PyTorch version.
+
+Importing the package does not import ``torch``: the lake layer and the
+sync daemon (``lst/``, ``core/``) never touch a tensor, and the fleet's
+process-mode children import only them.  ``DTYPES`` and
+``resolve_device`` load ``device.py`` on first use.
 """
 
-from repro_torch.device import DTYPES, resolve_device
-
 __all__ = ["DTYPES", "resolve_device"]
+
+
+def __getattr__(name):
+    if name in __all__:
+        from repro_torch import device
+        return getattr(device, name)
+    raise AttributeError(f"module 'repro_torch' has no attribute {name!r}")

@@ -16,6 +16,7 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.param import ParamSpec
@@ -283,7 +284,14 @@ def moe_mlp(x, p, cfg: ModelConfig, sh=None):
     out = torch.cat([out, out.new_zeros(G, 1, d)], dim=1)
     picked = out.gather(1, inv[..., None].expand(G, S * k, d))
     picked = picked.view(G, S, k, d)
-    y = torch.einsum("gskd,gsk->gsd", picked, top_w.to(picked.dtype))
+    w = top_w.to(picked.dtype)
+    if isinstance(picked, DTensor):
+        # DTensor's einsum reshapes the sharded operands into a view their
+        # placements cannot take (granite at prefill_32k); the product and
+        # sum over k take the same values, summed in another order
+        y = (picked * w[..., None]).sum(2)
+    else:
+        y = torch.einsum("gskd,gsk->gsd", picked, w)
     if sh is not None:
         y = sh(y, "batch", "seq", None)
 

@@ -35,8 +35,14 @@ PROBE = textwrap.dedent("""
                  "repro_torch.configs.gemma2_27b",
                  "repro_torch.configs.starcoder2_15b",
                  "repro_torch.configs.chameleon_34b",
-                 "repro_torch.configs.whisper_small"):
+                 "repro_torch.configs.whisper_small",
+                 "repro_torch.core.health", "repro_torch.core.checkpoint",
+                 "repro_torch.core.fleet", "repro_torch.core.daemon"):
         assert want in names, want
+    from repro_torch.core import (CheckpointStore, CommitRateEstimator,
+                                  DaemonCycleReport, HealthTracker,
+                                  LagAwareScheduler, ManualClock, SyncDaemon,
+                                  SyncFleet, SystemClock, run_daemon)
     from repro_torch.configs import get_config
     for arch in ("gemma2-27b", "starcoder2-15b", "chameleon-34b",
                  "whisper-small"):

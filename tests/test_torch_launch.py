@@ -197,12 +197,15 @@ def dryrun_records(tmp_path_factory):
     _dryrun(tmp, "--arch", "yi-9b", "--shape", "all", "--mesh", "single")
     _dryrun(tmp, "--arch", "mamba2-2.7b", "--shape", "long_500k", "--mesh",
             "single")
+    _dryrun(tmp, "--arch", "granite-moe-3b-a800m", "--shape", "prefill_32k",
+            "--mesh", "single")
     return {p.stem: json.loads(p.read_text()) for p in tmp.glob("*.json")}
 
 
 @pytest.mark.parametrize("name", [
     "yi-9b__train_4k__pod1", "yi-9b__prefill_32k__pod1",
-    "yi-9b__decode_32k__pod1", "mamba2-2.7b__long_500k__pod1"])
+    "yi-9b__decode_32k__pod1", "mamba2-2.7b__long_500k__pod1",
+    "granite-moe-3b-a800m__prefill_32k__pod1"])
 def test_dryrun_cells_write_ok_records(dryrun_records, name):
     rec = dryrun_records[name]
     assert rec["ok"], rec.get("error")

@@ -157,6 +157,45 @@ def test_moe_mlp_matches_reference(dtype, cf, s, tol):
         assert not want_drop.any()
 
 
+
+def test_moe_combine_on_a_one_rank_dtensor_mesh(tmp_path, monkeypatch):
+    """The DTensor branch of ``moe_mlp``'s combine (the product and sum
+    over k; DTensor's einsum fails at granite's prefill_32k): on a
+    one-rank gloo mesh its output equals, bit for bit, the same sum taken
+    on plain tensors, and is within fp32 rounding (1e-6 of the output's
+    scale) of the einsum plain tensors keep."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import DTensor, Replicate, distribute_tensor
+
+    from repro_torch.parallel import Sharder
+
+    _jcfg, _jp, tcfg, tp = _layer_pair("float32", 1.25)
+    x = torch.from_numpy(np.random.default_rng(9).standard_normal(
+        (B, S, tcfg.d_model)).astype(np.float32))
+    y_einsum, aux = L.moe_mlp(x, tp, tcfg)
+    dist.init_process_group("gloo", store=dist.FileStore(
+        str(tmp_path / "store"), 1), rank=0, world_size=1)
+    try:
+        mesh = init_device_mesh("cpu", (1,), mesh_dim_names=("data",))
+        rep = [Replicate()]
+        dx = distribute_tensor(x, mesh, rep)
+        dp = {k: distribute_tensor(v, mesh, rep) for k, v in tp.items()}
+        sh = Sharder.for_mesh(mesh)
+        with sh.region():
+            dy, daux = L.moe_mlp(dx, dp, tcfg, sh=sh)
+        assert isinstance(dy, DTensor)
+        y_dtensor, aux_dtensor = dy.full_tensor(), daux.full_tensor()
+    finally:
+        dist.destroy_process_group()
+    # plain tensors through the DTensor branch: the same order of sums
+    monkeypatch.setattr(L, "DTensor", torch.Tensor)
+    y_sum, _ = L.moe_mlp(x, tp, tcfg)
+    assert torch.equal(y_dtensor, y_sum)
+    assert torch.equal(aux_dtensor, aux)
+    scale = float(y_einsum.abs().max())
+    assert float((y_dtensor - y_einsum).abs().max()) <= 1e-6 * scale
+
 def test_route_breaks_ties_toward_the_lower_expert():
     """Equal probabilities: the choices come in descending order, ties to
     the lower expert id, as ``jax.lax.top_k`` gives them."""
