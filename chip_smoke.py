@@ -16,10 +16,13 @@ Phases (each raises on failure, so any failed check exits non-zero):
                 kernels alone; then flash and decode at granite's and
                 jamba's served shapes beside SDPA, and the SSD op at jamba's
                 widths (8192 heads of head_dim 1), its fp32 entry and each
-                bf16 kernel alone
-  4. model    - yi-9b, mamba2-2.7b, gemma2-27b (one local / global
-                cycle), starcoder2-15b, chameleon-34b and whisper-small (2
-                encoder layers, seeded frames) at full width, 2 layers,
+                bf16 kernel alone; flash forward, backward and decode at
+                stablelm-3b's head dim 80 (32 q / 32 kv heads) in both
+                dtypes, timed beside SDPA, and a head dim of 96 refused
+  4. model    - yi-9b, mamba2-2.7b, stablelm-3b, gemma2-27b (one local /
+                global cycle), starcoder2-15b, chameleon-34b and
+                whisper-small (2 encoder layers, seeded frames) at full
+                width, 2 layers,
                 fp32: prefill + 2 decode steps through the kernels, against
                 the plain CPU path on the same weights; and gemma2-27b on
                 the card alone: a 4,200-token prompt (the window bites, the
@@ -93,11 +96,21 @@ Phases (each raises on failure, so any failed check exits non-zero):
                 meta) for phase 5's yi-9b and mamba2 prefills and phase 7's
                 step beside their measured times: model FLOPs, roofline
                 time, MFU, and the step's estimated peak memory
+ 13. stablelm - stablelm-3b at full width and depth (32 layers, head dim
+                80, bf16) served as in phase 5: 32 flash launches a
+                prefill, 32 decode a step, the decode step as a CUDA graph
+ 14. scenario - the paper's Scenario 3 (examples/serve_flex.py):
+                stablelm-3b at full width, 4 layers, trained from a Delta
+                corpus (b 4 x s 2048, the flash forward and backward at
+                head dim 80), saved as Hudi, translated to Iceberg and
+                Delta by one cycle of the port's SyncDaemon, restored by
+                ServeEngine.from_lake through Iceberg (every tensor equal)
+                and served (the trainer's weights' tokens)
 Phase 3 also holds the flash-attention backward kernel against its plain
 version (autograd through the forward's) and times it at the training
 shape, whole and each of its three kernels alone; phase 4 also holds every
-gradient of a 2-layer fp32 train step on the card against the CPU's at
-2e-3.
+gradient of a 2-layer fp32 train step of yi-9b and of stablelm-3b on the
+card against the CPU's at 2e-3.
 The last two lines are the kernels JSON line and the result line.
 """
 
@@ -193,6 +206,14 @@ FLASH_SWEEP = [
     (1, 100, 229, 24, 8, 64, True, 0, 0.0),
     (2, 200, 200, 48, 8, 128, True, 0, 0.0),
     (1, 131, 259, 48, 8, 128, True, 0, 0.0),
+    # stablelm-3b's head dim 80 (two 64-column boxes, columns 80-127 zero):
+    # its heads (32 / 32: g 1) causal with ragged tiles; g 4 with a window
+    # and softcap across tile edges; non-causal sk one key block - 1 and sq
+    # one q block + 1; causal sq < sk
+    (2, 200, 200, 32, 32, 80, True, 0, 0.0),
+    (1, 300, 300, 8, 2, 80, True, 150, 30.0),
+    (2, 129, 127, 4, 4, 80, False, 0, 0.0),
+    (1, 65, 129, 4, 1, 80, True, 0, 0.0),
 ]
 FLASH_RAGGED = (1, 300, 300, 4, 1, 128, True, 0, 0.0)
 # (b, S, h, kv, dh, window, softcap)
@@ -209,6 +230,11 @@ DECODE_SWEEP = [
     # granite's heads (g 3, dh 64) and dbrx's (g 6, dh 128), ragged caches
     (3, 777, 24, 8, 64, 0, 0.0),
     (2, 1029, 48, 8, 128, 0, 0.0),
+    # stablelm-3b's head dim 80: its heads (g 1), a ragged cache; g 4 with
+    # a window and softcap; g 16
+    (3, 777, 32, 32, 80, 0, 0.0),
+    (2, 512, 8, 2, 80, 128, 50.0),
+    (1, 300, 16, 1, 80, 0, 30.0),
 ]
 # (b, s, h, p, g, n, chunk): the Pallas sweep of tests/test_kernels.py
 SSD_SWEEP = [
@@ -234,6 +260,16 @@ FLASH_MAIN = (SERVE_B, max(SERVE_PROMPTS), max(SERVE_PROMPTS), 32, 4, 128,
               True, 0, 0.0)
 # the training shape of phase 7: yi-9b at full width, cut to 4 layers
 TRAIN_LAYERS, TRAIN_B, TRAIN_S = 4, 4, 2048
+# stablelm-3b's attention (32 q / 32 kv heads, head dim 80) at phase 13's
+# serving shape, which is also phase 14's training shape; its decode cache
+STABLELM = get_config("stablelm-3b")
+STABLELM_HEADS = (STABLELM.n_heads, STABLELM.n_kv_heads, STABLELM.head_dim)
+FLASH_DH80 = (SERVE_B, max(SERVE_PROMPTS), max(SERVE_PROMPTS),
+              *STABLELM_HEADS, True, 0, 0.0)
+DECODE_DH80 = (SERVE_B, SERVE_CACHE, *STABLELM_HEADS, 0, 0.0)
+# phase 14 (the paper's Scenario 3): stablelm-3b at full width cut to
+# TRAIN_LAYERS layers, trained SCENARIO_STEPS steps
+SCENARIO_STEPS = 4
 # phase 8's traffic: gemma2-27b's local layers' window bites in prefill and
 # their 4096-slot ring wraps in decode
 GEMMA_PROMPTS, GEMMA_NEW, GEMMA_CACHE = (5120, 4096, 3072, 2048), 32, 6144
@@ -253,6 +289,17 @@ KERNELS = {"flash_attention": flash_ops.flash_attention,
            "decode_attention": decode_ops.decode_attention,
            "ssd_chunk_scan": ssd_ops.ssd_chunk_scan,
            "flash_attention_bwd": flash_ops.flash_attention_bwd}
+SOURCES = {"flash_attention": "src/repro_torch/kernels/flash_attention/csrc/"
+                              "flash_attention.cu",
+           "flash_attention_bwd": "src/repro_torch/kernels/flash_attention/"
+                                  "csrc/flash_attention_bwd.cu",
+           "decode_attention": "src/repro_torch/kernels/decode_attention/"
+                               "csrc/decode_attention.cu",
+           "ssd_chunk_scan": "src/repro_torch/kernels/ssd/csrc/ssd.cu"}
+REPLACES = {"flash_attention": "src/repro/kernels/flash_attention/kernel.py:81",
+            "flash_attention_bwd": "src/repro/models/layers.py:101",
+            "decode_attention": "src/repro/kernels/decode_attention/kernel.py:76",
+            "ssd_chunk_scan": "src/repro/kernels/ssd/kernel.py:72"}
 
 
 def log(msg: str) -> None:
@@ -380,9 +427,20 @@ def _flash_inputs(gen, shape, dtype):
     return q, k, v
 
 
-def phase_flash(gen, main_shape) -> dict:
+def _kernel_record(kernel: str, name: str, **numbers) -> dict:
+    """A row of the kernels line: ``kernel``'s source and the TPU kernel
+    it replaces, under ``name`` (the kernel, or it at one head dim)."""
+    return dict(name=name, kernel=kernel, route="cuda",
+                source=SOURCES[kernel], replaces=REPLACES[kernel], **numbers)
+
+
+def phase_flash(gen, main_shape, sweep=FLASH_SWEEP + [FLASH_RAGGED],
+                name: str = "flash_attention") -> dict:
+    """The forward kernel against its plain version over ``sweep`` (both
+    dtypes) and at ``main_shape`` (bf16), then its time there beside the
+    plain version's, SDPA's and the bound: the kernels line's ``name``."""
     for dtype in (torch.float32, torch.bfloat16):
-        for shape in FLASH_SWEEP + [FLASH_RAGGED]:
+        for shape in sweep:
             q, k, v = _flash_inputs(gen, shape, dtype)
             kw = dict(causal=shape[6], window=shape[7], softcap=shape[8])
             out = flash_ops.flash_attention(q, k, v, **kw)
@@ -413,11 +471,9 @@ def phase_flash(gen, main_shape) -> dict:
     flops, nbytes = cost.flash_work(b, sq, sk, h, kv, dh, causal, window,
                                     q.element_size())
     bms, by = bound_ms(flops, nbytes, dtype)
-    rec = dict(name="flash_attention", route="cuda",
-               source="src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
-               replaces="src/repro/kernels/flash_attention/kernel.py:81",
-               max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
-               bound_by=by, library_ms=lib_ms)
+    rec = _kernel_record("flash_attention", name, max_abs_err=err, ms=ms,
+                         plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                         library_ms=lib_ms)
     log(json.dumps({"kernel_check": rec["name"], "shape": list(main_shape),
                     "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                     "library_ms": lib_ms, "bound_us": bms * 1e3,
@@ -470,13 +526,15 @@ def flash_bwd_kernel_times(args, kw: dict) -> dict:
             for name, bit in stages.items()}
 
 
-def phase_flash_bwd(gen, main_shape) -> dict:
-    """The backward kernel against its plain version over the sweep and at
+def phase_flash_bwd(gen, main_shape, sweep=FLASH_SWEEP + [FLASH_RAGGED],
+                    name: str = "flash_attention_bwd") -> dict:
+    """The backward kernel against its plain version over ``sweep`` and at
     the training shape (both dtypes), then its time at the training shape
     in a CUDA graph, each of its kernels alone, the plain version's time,
-    and SDPA's backward (a yardstick the port never calls)."""
+    and SDPA's backward (a yardstick the port never calls): the kernels
+    line's ``name``."""
     for dtype in (torch.float32, torch.bfloat16):
-        for shape in FLASH_SWEEP + [FLASH_RAGGED]:
+        for shape in sweep:
             _flash_bwd_check(gen, shape, dtype)
     _flash_bwd_check(gen, main_shape, torch.float32, " (training shape)")
     torch.cuda.empty_cache()
@@ -507,12 +565,9 @@ def phase_flash_bwd(gen, main_shape) -> dict:
     flops, nbytes = cost.flash_bwd_work(b, sq, sk, h, kv, dh, causal, window,
                                         q.element_size())
     bms, by = bound_ms(flops, nbytes, dtype)
-    rec = dict(name="flash_attention_bwd", route="cuda",
-               source="src/repro_torch/kernels/flash_attention/csrc/"
-                      "flash_attention_bwd.cu",
-               replaces="src/repro/models/layers.py:101",
-               max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
-               bound_by=by, library_ms=lib_ms)
+    rec = _kernel_record("flash_attention_bwd", name, max_abs_err=err,
+                         ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                         library_ms=lib_ms)
     log(json.dumps({"kernel_check": rec["name"], "shape": list(main_shape),
                     "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                     "library_ms": lib_ms, "bound_us": bms * 1e3,
@@ -534,9 +589,15 @@ def _decode_inputs(gen, shape, dtype, lengths):
     return q, k, v, torch.as_tensor(lengths, dtype=torch.int32, device=dev)
 
 
-def phase_decode(gen, rng, main_shape, main_lengths) -> dict:
+def phase_decode(gen, rng, main_shape, main_lengths, sweep=DECODE_SWEEP,
+                 name: str = "decode_attention") -> dict:
+    """The decode kernel against its plain version over ``sweep`` (both
+    dtypes; random lengths, the first 0 in fp32) and at ``main_shape``
+    with ``main_lengths`` (bf16), then its time there beside the plain
+    version's, SDPA's and the bound, also for the first one and two
+    sequences: the kernels line's ``name``."""
     for dtype in (torch.float32, torch.bfloat16):
-        for shape in DECODE_SWEEP:
+        for shape in sweep:
             b, S, _, _, _, window, softcap = shape
             lengths = rng.integers(max(window, 8), S, b)
             if dtype == torch.float32:
@@ -605,11 +666,9 @@ def phase_decode(gen, rng, main_shape, main_lengths) -> dict:
                            library_GBps=nb_bytes / nb_lib / 1e6)
     flops, nbytes = work(b)
     bms, by = bound_ms(flops, nbytes, dtype)
-    rec = dict(name="decode_attention", route="cuda",
-               source="src/repro_torch/kernels/decode_attention/csrc/decode_attention.cu",
-               replaces="src/repro/kernels/decode_attention/kernel.py:76",
-               max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
-               bound_by=by, library_ms=lib_ms)
+    rec = _kernel_record("decode_attention", name, max_abs_err=err, ms=ms,
+                         plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                         library_ms=lib_ms)
     log(json.dumps({"kernel_check": rec["name"], "shape": list(main_shape),
                     "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                     "library_ms": lib_ms, "bound_us": bms * 1e3,
@@ -619,6 +678,52 @@ def phase_decode(gen, rng, main_shape, main_lengths) -> dict:
                     "smaller_batches": batches,
                     "check_launches": decode_ops.decode_attention.launches}))
     return rec
+
+
+def refuse_head_dim(gen, dh: int) -> None:
+    """Each attention wrapper refuses a head dim outside its HEAD_DIMS on
+    the card (a ValueError before any launch), never falling back."""
+    q, k, v = _flash_inputs(gen, (1, 8, 8, 2, 2, dh), torch.bfloat16)
+    lengths = torch.full((1,), 8, dtype=torch.int32, device="cuda")
+    lse = torch.zeros((1, 2, 8), device="cuda")
+    calls = {"flash_attention": lambda: flash_ops.flash_attention(q, k, v),
+             "flash_attention_bwd": lambda: flash_ops.flash_attention_bwd(
+                 q, k, v, q, q, lse),
+             "decode_attention": lambda: decode_ops.decode_attention(
+                 q[:, 0], k, v, lengths)}
+    before = counts()
+    for name, call in calls.items():
+        try:
+            call()
+        except ValueError as e:
+            log(f"  {name} refuses head_dim {dh} on the card: {e}")
+            continue
+        raise AssertionError(f"{name} took head_dim {dh} on the card")
+    if counts() != before:
+        raise AssertionError(f"a refused call counted a launch: {counts()}")
+
+
+def phase_dh80(gen, rng) -> list:
+    """The three attention kernels at stablelm-3b's head dim 80 (32 q / 32
+    kv heads, g 1): forward and decode at phase 13's serving shapes, the
+    backward at phase 14's training shape, each against its plain version
+    in fp32 and bf16 there and timed in bf16 beside the plain version,
+    SDPA and the bound: three rows of the kernels line.  A head dim outside
+    HEAD_DIMS (96) is refused on the card."""
+    lengths = rng.integers(max(SERVE_PROMPTS) + 1,
+                           max(SERVE_PROMPTS) + SERVE_NEW, SERVE_B)
+    recs = [phase_flash(gen, FLASH_DH80, sweep=[FLASH_DH80],
+                        name="flash_attention_dh80")]
+    torch.cuda.empty_cache()
+    recs.append(phase_flash_bwd(gen, FLASH_DH80, sweep=(),
+                                name="flash_attention_bwd_dh80"))
+    torch.cuda.empty_cache()
+    recs.append(phase_decode(gen, rng, DECODE_DH80, lengths,
+                             sweep=[DECODE_DH80],
+                             name="decode_attention_dh80"))
+    torch.cuda.empty_cache()
+    refuse_head_dim(gen, 96)
+    return recs
 
 
 def _ssd_inputs(gen, shape, dtype):
@@ -688,11 +793,9 @@ def phase_ssd(gen, main_shape) -> dict:
         f"set of buffers (ms): " + json.dumps(stages_ms))
     flops, nbytes = cost.ssd_work(*main_shape, args[0].element_size())
     bms, by = bound_ms(flops, nbytes, dtype)
-    rec = dict(name="ssd_chunk_scan", route="cuda",
-               source="src/repro_torch/kernels/ssd/csrc/ssd.cu",
-               replaces="src/repro/kernels/ssd/kernel.py:72",
-               max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
-               bound_by=by, library_ms=None)
+    rec = _kernel_record("ssd_chunk_scan", "ssd_chunk_scan", max_abs_err=err,
+                         ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                         library_ms=None)
     log(json.dumps({"kernel_check": rec["name"], "shape": list(main_shape),
                     "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                     "library_ms": None, "bound_us": bms * 1e3,
@@ -913,7 +1016,7 @@ def well_conditioned(tpl):
     return tree_map(fix, tpl)
 
 
-def phase_model_grads(seed: int, s: int = 128) -> None:
+def phase_model_grads(seed: int, arch: str = "yi-9b", s: int = 128) -> None:
     """Full width, 2 layers, fp32: the loss and every parameter's gradient
     of the train loss on the card (flash forward and backward kernels,
     per-cycle remat) against the plain CPU path on the same weights and
@@ -922,7 +1025,7 @@ def phase_model_grads(seed: int, s: int = 128) -> None:
     Tolerance 2e-3, phase 4's on the logits: the loss within 2e-3, and each
     gradient within 2e-3 and within 2e-3 of its largest entry:
     max |g_card - g_cpu| <= 2e-3 min(1, max |g_cpu|)."""
-    cfg = replace(get_config("yi-9b"), n_layers=2, dtype="float32")
+    cfg = replace(get_config(arch), n_layers=2, dtype="float32")
     tol = 2e-3
     p_cpu = init_params(well_conditioned(Model(cfg, device="cpu")
                                          .param_template()),
@@ -941,7 +1044,7 @@ def phase_model_grads(seed: int, s: int = 128) -> None:
     loss_err = abs(card[0] - cpu[0])
     want = {"flash_attention": 2 * cfg.n_layers, "decode_attention": 0,
             "ssd_chunk_scan": 0, "flash_attention_bwd": cfg.n_layers}
-    log(f"  train step yi-9b width {cfg.d_model}, 2 layers, fp32, b 1, s {s}: "
+    log(f"  train step {arch} width {cfg.d_model}, 2 layers, fp32, b 1, s {s}: "
         f"loss card {card[0]:.6f} cpu {cpu[0]:.6f} (|card - cpu| "
         f"{loss_err:.3g}, tol {tol}); launches {launches}")
     log("  train step gradients, max |g_card - g_cpu| and max |g_cpu| by "
@@ -1496,18 +1599,24 @@ def phase_lake(kept: dict, card: str, want_launches: dict) -> dict:
     return stats
 
 
-def _equal_states(a, b) -> int:
-    """Raise unless every tensor of trainer b's state equals trainer a's
-    (same names, device and values); returns the tensor count."""
-    want = leaf_paths({"params": a.params, "opt": a.opt_state})
-    got = leaf_paths({"params": b.params, "opt": b.opt_state})
+def _equal_trees(want, got, what: str) -> int:
+    """Raise unless every tensor of the tree ``got`` equals ``want``'s
+    (same names, device, dtype and values); returns the tensor count."""
+    want, got = leaf_paths(want), leaf_paths(got)
     if [n for n, _ in got] != [n for n, _ in want]:
-        raise AssertionError("train: restored leaf names differ")
+        raise AssertionError(f"{what}: restored leaf names differ")
     for (name, x), (_, y) in zip(want, got):
         if y.device != x.device or y.dtype != x.dtype or \
                 not torch.equal(x, y):
-            raise AssertionError(f"train: restored {name} differs")
+            raise AssertionError(f"{what}: restored {name} differs")
     return len(want)
+
+
+def _equal_states(a, b) -> int:
+    """Raise unless every tensor of trainer b's state equals trainer a's;
+    returns the tensor count."""
+    return _equal_trees({"params": a.params, "opt": a.opt_state},
+                        {"params": b.params, "opt": b.opt_state}, "train")
 
 
 def daemon_translate(base: str, commit: str, t_commit: float) -> tuple:
@@ -1577,6 +1686,36 @@ def daemon_translate(base: str, commit: str, t_commit: float) -> tuple:
     return stats, ptr
 
 
+def time_trainer(tr) -> tuple:
+    """Wrap the trainer's ``step_fn`` and ``save`` (instance attributes):
+    each step synchronised and timed, with its launches counted from 0,
+    and each save timed.  Returns (the original step_fn, then the lists
+    the run fills: step seconds, step launches, save seconds, the clock
+    at each save's end)."""
+    step_fn, step_s, step_launches = tr.step_fn, [], []
+
+    def timed_step(*args):
+        zero_counts()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = step_fn(*args)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t)
+        step_launches.append(counts())
+        return out
+
+    save_fn, save_s, saved_at = tr.save, [], []
+
+    def timed_save(step):
+        t = time.perf_counter()
+        save_fn(step)
+        saved_at.append(time.perf_counter())
+        save_s.append(saved_at[-1] - t)
+
+    tr.step_fn, tr.save = timed_step, timed_save
+    return step_fn, step_s, step_launches, save_s, saved_at
+
+
 def phase_train(card: str, seed: int) -> dict:
     """Train yi-9b (full width, TRAIN_LAYERS layers, bf16, fp32 master)
     from a lake corpus: trainer A runs 4 steps and commits its state as a
@@ -1618,28 +1757,7 @@ def phase_train(card: str, seed: int) -> dict:
         torch.cuda.synchronize()
         stats["init_s"] = time.perf_counter() - t0
 
-        # timing hooks around A's step function and save
-        step_fn, step_s, step_launches = a.step_fn, [], []
-
-        def timed_step(*args):
-            zero_counts()
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            out = step_fn(*args)
-            torch.cuda.synchronize()
-            step_s.append(time.perf_counter() - t)
-            step_launches.append(counts())
-            return out
-
-        save_fn, save_s, saved_at = a.save, [], []
-
-        def timed_save(step):
-            t = time.perf_counter()
-            save_fn(step)
-            saved_at.append(time.perf_counter())
-            save_s.append(saved_at[-1] - t)
-
-        a.step_fn, a.save = timed_step, timed_save
+        step_fn, step_s, step_launches, save_s, saved_at = time_trainer(a)
         torch.cuda.reset_peak_memory_stats()
         hist = a.run()
         peak = torch.cuda.max_memory_allocated()
@@ -1728,6 +1846,110 @@ def phase_train(card: str, seed: int) -> dict:
     finally:
         shutil.rmtree(root, ignore_errors=True)
     log("  train: " + json.dumps(stats))
+    return stats
+
+
+def phase_scenario3(card: str, seed: int) -> dict:
+    """The paper's Scenario 3 (``examples/serve_flex.py``) on the card:
+    stablelm-3b at full width, cut to TRAIN_LAYERS layers (bf16, fp32
+    master), trains SCENARIO_STEPS steps of b TRAIN_B x s TRAIN_S from a
+    Delta corpus, each step through the flash forward (2 a layer: remat)
+    and backward (1 a layer) at head dim 80, and commits its state as a
+    Hudi checkpoint (no inline sync); one ``run_cycle()`` of the port's
+    ``SyncDaemon`` translates it to Iceberg and Delta
+    (``daemon_translate``); ``ServeEngine.from_lake`` restores the weights
+    through the Iceberg view at the path the catalog resolves and serves
+    phase 5's four requests.  Every restored tensor must equal the
+    trainer's, and the served greedy tokens those of an engine on the
+    trainer's in-memory weights.  The corpus and checkpoint live in a
+    temporary directory, removed at the end."""
+    cfg = replace(STABLELM, n_layers=TRAIN_LAYERS)
+    model = Model(cfg)
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_scenario3_"))
+    try:
+        fs = LocalFS()
+        corpus = str(root / "corpus")
+        write_synth_corpus(fs, corpus, fmt="delta", n_docs=32,
+                           pack_len=TRAIN_S + 1, vocab=cfg.vocab_size,
+                           seed=seed)
+        stats = dict(layers=cfg.n_layers, batch=TRAIN_B, seq=TRAIN_S,
+                     params=count_params(model.param_template()))
+        tr = Trainer(model, LakeDataLoader(fs, corpus, "delta",
+                                           batch_size=TRAIN_B,
+                                           seq_len=TRAIN_S),
+                     fs, str(root / "ckpt"),
+                     TrainerConfig(steps=SCENARIO_STEPS, save_every=0,
+                                   log_every=1, ckpt_format="hudi",
+                                   sync_targets=(), ce_chunk=128,
+                                   opt=AdamWConfig(peak_lr=1e-3,
+                                                   warmup_steps=2,
+                                                   total_steps=10)))
+        tr.init_or_restore(seed=seed)
+        _, step_s, step_launches, save_s, saved_at = time_trainer(tr)
+        torch.cuda.reset_peak_memory_stats()
+        losses = [loss for _, loss in tr.run()]
+        peak = torch.cuda.max_memory_allocated()
+        daemon_stats, ptr = daemon_translate(
+            str(root / "ckpt"), tr.ckpt.handle.current_version(), saved_at[0])
+        stats.update(
+            losses=losses, step_s=step_s,
+            step_s_median=float(np.median(step_s[1:])),
+            peak_mem_gib=peak / 2**30, step_launches=step_launches,
+            save_s=save_s[0], **daemon_stats,
+            launches={name: sum(c[name] for c in step_launches)
+                      for name in KERNELS})
+        want = {"flash_attention": 2 * cfg.n_layers, "decode_attention": 0,
+                "ssd_chunk_scan": 0, "flash_attention_bwd": cfg.n_layers}
+        for i, c in enumerate(step_launches):
+            if c != want:
+                raise AssertionError(f"scenario 3 step {i}: launches {c}, "
+                                     f"want {want}")
+        if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+            raise AssertionError(f"scenario 3: the loss did not fall: "
+                                 f"{losses}")
+
+        # the server opens the Hudi-written checkpoint through Iceberg
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        engine = ServeEngine.from_lake(model, fs, ptr.base_path,
+                                       fmt="iceberg", cache_len=SERVE_CACHE)
+        torch.cuda.synchronize()
+        stats["restore_s"] = time.perf_counter() - t0
+        stats["tensors_equal"] = _equal_trees(tr.params, engine.params,
+                                              "scenario 3")
+        rng = np.random.default_rng(seed)
+        reqs = [Request(rng.integers(0, cfg.vocab_size - 1, n).tolist(),
+                        SERVE_NEW) for n in SERVE_PROMPTS]
+        zero_counts()
+        t0 = time.perf_counter()
+        outs = engine.generate(reqs)
+        torch.cuda.synchronize()
+        stats["generate_s"] = time.perf_counter() - t0
+        stats["serve_launches"] = counts()
+        mem = ServeEngine(model, tr.params, cache_len=SERVE_CACHE)
+        if outs != mem.generate(reqs):
+            raise AssertionError("scenario 3: the restored engine's tokens "
+                                 "differ from the trainer's weights'")
+        want_serve = dict(want, flash_attention=cfg.n_layers,
+                          decode_attention=cfg.n_layers * (SERVE_NEW - 1),
+                          flash_attention_bwd=0)
+        if stats["serve_launches"] != want_serve:
+            raise AssertionError(f"scenario 3: serve launches "
+                                 f"{stats['serve_launches']}, want "
+                                 f"{want_serve}")
+        log(f"  scenario 3: {cfg.name} {cfg.n_layers} layers, "
+            f"{stats['params']:,} params, b {TRAIN_B} x s {TRAIN_S}: losses "
+            f"{[round(x, 4) for x in losses]}; step s {step_s}; peak memory "
+            f"{peak / 2**30:.2f} GiB; save (Hudi) {save_s[0]:.2f} s; the "
+            f"daemon's cycle {stats['daemon_cycle_s']:.3f} s, staleness "
+            f"{stats['staleness_s']:.3f} s; from_lake (Iceberg) "
+            f"{stats['restore_s']:.2f} s, {stats['tensors_equal']} tensors "
+            f"equal; "
+            f"served tokens equal the trainer's weights'; card {card}")
+        del tr, engine, mem
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    log("  scenario 3: " + json.dumps(stats))
     return stats
 
 
@@ -2274,6 +2496,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     kernels.append(phase_flash_bwd(gen, FLASH_MAIN))
     torch.cuda.empty_cache()
+    kernels += phase_dh80(gen, rng)
     moe_kernels = served_kernels(gen)
     torch.cuda.empty_cache()
 
@@ -2282,6 +2505,9 @@ def main() -> int:
     # 300 is not a multiple of the 256-row chunk: the model's pad path
     phase_model("mamba2-2.7b", args.seed, 300)
     phase_model_grads(args.seed)
+    torch.cuda.empty_cache()
+    phase_model("stablelm-3b", args.seed, 128)
+    phase_model_grads(args.seed, "stablelm-3b")
     torch.cuda.empty_cache()
     for arch in ("gemma2-27b", "starcoder2-15b", "chameleon-34b"):
         phase_model(arch, args.seed, 128)
@@ -2357,13 +2583,29 @@ def main() -> int:
     stats["mesh"] = phase_mesh(card, args.seed, stats)
     torch.cuda.empty_cache()
 
-    # each kernel's launches on its main path: serving (phase 5) for the
-    # forward kernels, trainer A's run (phase 7) for the backward
+    head("phase 13: serve, stablelm-3b full width and depth, bf16")
+    kernel_ms = {rec["kernel"]: rec["ms"] for rec in kernels
+                 if rec["name"].endswith("_dh80")}
+    stats["stablelm-3b"] = phase_serve("stablelm-3b", args.seed, kernel_ms)
+    torch.cuda.empty_cache()
+    head(f"phase 14: Scenario 3, stablelm-3b full width, {TRAIN_LAYERS} "
+         f"layers: trained from the lake, saved as Hudi, translated by the "
+         f"port's SyncDaemon, served from the Iceberg view")
+    stats["scenario3"] = phase_scenario3(card, args.seed)
+    torch.cuda.empty_cache()
+
+    # each kernel's launches on its main path: serving (phases 5 and 13) for
+    # the forward kernels, the trainers' runs (phases 7 and 14) for the
+    # backward
     path_of = {"flash_attention": "yi-9b", "decode_attention": "yi-9b",
                "ssd_chunk_scan": "mamba2-2.7b",
-               "flash_attention_bwd": "train"}
+               "flash_attention_bwd": "train",
+               "flash_attention_dh80": "stablelm-3b",
+               "decode_attention_dh80": "stablelm-3b",
+               "flash_attention_bwd_dh80": "scenario3"}
     for rec in kernels:
-        rec["launches"] = stats[path_of[rec["name"]]]["launches"][rec["name"]]
+        rec["launches"] = stats[path_of[rec["name"]]]["launches"][
+            rec["kernel"]]
 
     log(f"total {time.perf_counter() - t_start:.1f} s")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

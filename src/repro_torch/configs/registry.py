@@ -1,11 +1,11 @@
 """Architecture registry of the port: the archs ported so far.
 
-``yi-9b`` (slice 1) and ``mamba2-2.7b`` (slice 2) run in the port;
-``stablelm-3b`` (slice 6) runs its smoke config on the CPU (its head_dim 80
-waits for the kernels, ROADMAP B1w); ``gemma2-27b``, ``starcoder2-15b``,
-``chameleon-34b`` and ``whisper-small`` (slice 8) and the MoE archs
-``dbrx-132b``, ``granite-moe-3b-a800m`` and ``jamba-v0.1-52b`` (slice 9)
-run on both.  The order is the reference registry's.
+``yi-9b`` (slice 1), ``mamba2-2.7b`` (slice 2), ``stablelm-3b`` (slice
+6; its head_dim 80 on the card since slice 12), ``gemma2-27b``,
+``starcoder2-15b``, ``chameleon-34b`` and ``whisper-small`` (slice 8) and
+the MoE archs ``dbrx-132b``, ``granite-moe-3b-a800m`` and
+``jamba-v0.1-52b`` (slice 9) run on both the card and the CPU.  The order
+is the reference registry's.
 """
 
 from __future__ import annotations

@@ -42,8 +42,14 @@
 //     (split, head), written only by splits that hold rows.
 // fp32 keeps its CUDA-core body (the tolerance of the fp32 path, 3e-5,
 // rules out TF32): each warp takes 4 consecutive rows at a time, a lane
-// holds dh / 32 contiguous elements of a row, and the 4 x g dot products
-// are reduced by warp shuffles side by side.
+// holds dh / 32 contiguous elements of a row (4 at dh 80: 20 lanes hold a
+// row, 12 hold nothing), and the 4 x g dot products are reduced by warp
+// shuffles side by side.
+// Head dims 64, 80 and 128.  At dh 80 (stablelm-3b, MHA: g 1) the bf16
+// body runs as at 64 and 128 (5 k-steps of S, 10 n-tiles of O, rows of
+// ten 16-byte chunks, 176 bytes padded); its heads are padded to the
+// mma's 16 rows, so at g 1 it does 16x the least arithmetic, which the
+// bytes still bound (~4 FLOPs a byte).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -88,7 +94,10 @@ decode_split_f32(const float* __restrict__ q, const float* __restrict__ kc,
                  float* __restrict__ part_acc, int h, int kv, int S,
                  int window, float softcap, float scale, int chunk,
                  int nsplit) {
-  constexpr int E = D / 32;
+  // E contiguous elements of a row a lane, the first LANES lanes
+  constexpr int E = D % 32 == 0 ? D / 32 : 4;
+  constexpr int LANES = D / E;
+  static_assert(D % E == 0 && LANES <= 32, "no lane mapping for this dh");
   __shared__ float sm_m[WARPS][G];
   __shared__ float sm_l[WARPS][G];
   __shared__ float sm_acc[WARPS][G][D];
@@ -102,10 +111,12 @@ decode_split_f32(const float* __restrict__ q, const float* __restrict__ kc,
   const int s_hi = min(len, (split + 1) * chunk);
   if (s_lo >= s_hi) return;        // the merge reads only splits with rows
 
+  const bool holds = lane < LANES;   // a lane past them loads nothing
+  const int col = holds ? lane * E : 0;
   const long row = (long)kv * D;
-  const float* kb = kc + (long)bb * S * row + (long)kh * D + lane * E;
-  const float* vb = vc + (long)bb * S * row + (long)kh * D + lane * E;
-  const float* qb = q + ((long)bb * h + (long)kh * g) * D + lane * E;
+  const float* kb = kc + (long)bb * S * row + (long)kh * D + col;
+  const float* vb = vc + (long)bb * S * row + (long)kh * D + col;
+  const float* qb = q + ((long)bb * h + (long)kh * g) * D + col;
 
   // heads j >= g (G is g rounded up to a power of two) get q = 0 and are
   // never stored: computing them keeps every loop free of branches on g,
@@ -117,7 +128,7 @@ decode_split_f32(const float* __restrict__ q, const float* __restrict__ kc,
     l[j] = 0.f;
 #pragma unroll
     for (int e = 0; e < E; ++e) { qr[j][e] = 0.f; acc[j][e] = 0.f; }
-    if (j < g) {
+    if (j < g && holds) {
       load_f32<float, E>(qb + (long)j * D, qr[j]);
 #pragma unroll
       for (int e = 0; e < E; ++e) qr[j][e] *= scale;
@@ -133,7 +144,7 @@ decode_split_f32(const float* __restrict__ q, const float* __restrict__ kc,
   auto load_rows = [&](int t0, float (&kd)[U][E], float (&vd)[U][E]) {
 #pragma unroll
     for (int u = 0; u < U; ++u) {
-      if (t0 + u < s_hi) {
+      if (t0 + u < s_hi && holds) {
         load_f32<float, E>(kb + (long)(t0 + u) * row, kd[u]);
         load_f32<float, E>(vb + (long)(t0 + u) * row, vd[u]);
       } else {
@@ -193,8 +204,10 @@ decode_split_f32(const float* __restrict__ q, const float* __restrict__ kc,
 #pragma unroll
   for (int j = 0; j < G; ++j) {
     if (lane == 0) { sm_m[warp][j] = m[j]; sm_l[warp][j] = l[j]; }
+    if (holds) {
 #pragma unroll
-    for (int e = 0; e < E; ++e) sm_acc[warp][j][lane * E + e] = acc[j][e];
+      for (int e = 0; e < E; ++e) sm_acc[warp][j][col + e] = acc[j][e];
+    }
   }
   __syncthreads();
   for (int i = threadIdx.x; i < g * D; i += THREADS) {
@@ -560,7 +573,7 @@ int dispatch(const void* q, const void* k, const void* v, const void* lengths,
   float* pa = static_cast<float*>(part_acc);
   if (b <= 0 || S <= 0 || kv <= 0 || chunk <= 0 || h % kv != 0 ||
       h / kv > 16 || (S + chunk - 1) / chunk > MAX_SPLITS ||
-      (dh != 64 && dh != 128))
+      (dh != 64 && dh != 80 && dh != 128))
     return (int)cudaErrorInvalidValue;
   const int g = h / kv;
   const dim3 grid((S + chunk - 1) / chunk, kv, b);
@@ -568,7 +581,9 @@ int dispatch(const void* q, const void* k, const void* v, const void* lengths,
 #define DECODE_ARGS grid, q, k, v, lens, pm, pl, pa, h, kv, S, window, \
                     softcap, chunk, s
   if constexpr (sizeof(T) == 2) {
-    err = dh == 64 ? split_bf16<64>(DECODE_ARGS) : split_bf16<128>(DECODE_ARGS);
+    err = dh == 64   ? split_bf16<64>(DECODE_ARGS)
+          : dh == 80 ? split_bf16<80>(DECODE_ARGS)
+                     : split_bf16<128>(DECODE_ARGS);
   } else {
 #define DECODE_GROUPS(DH)                                                   \
   err = g <= 1   ? split_f32<DH, 1>(DECODE_ARGS)                            \
@@ -578,6 +593,8 @@ int dispatch(const void* q, const void* k, const void* v, const void* lengths,
                  : split_f32<DH, 16>(DECODE_ARGS)
     if (dh == 64) {
       DECODE_GROUPS(64);
+    } else if (dh == 80) {
+      DECODE_GROUPS(80);
     } else {
       DECODE_GROUPS(128);
     }

@@ -20,7 +20,7 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.decode_attention.ref import decode_attention_ref
 
-HEAD_DIMS = (64, 128)
+HEAD_DIMS = (64, 80, 128)
 MAX_GROUP = 16          # query heads per kv head the kernel serves
 TILE = 64               # cache rows per stage of the kernel's ring
 MAX_SPLITS = 1024       # splits the merge kernel takes

@@ -49,7 +49,14 @@
 //     softcap > 0;
 //   * the grid is (h, b, q tile) with the q tile reversed: the heaviest
 //     causal tiles start first, and the g query heads of one kv head are
-//     neighbouring blocks, so their K/V tiles hit in L2.
+//     neighbouring blocks, so their K/V tiles hit in L2;
+//   * head dims 64, 80 and 128.  At dh 80 (stablelm-3b) a 160-byte row is
+//     wider than one 128-byte swizzle atom, so a tile is two boxes as at dh
+//     128 and TMA fills columns 80-127 with zeros (padded(), hopper.cuh):
+//     S = Q K^T takes 5 k-steps of 16 (the real columns only), P V runs
+//     at N = 128 (wgmma's transposed B reads whole 64-column atoms) and
+//     only columns 0-79 are stored.  That is 1.3x the least tensor work
+//     ((80 + 128) / 160) and the dh-128 kernel's shared memory.
 // Padded k/v rows are zero (TMA's fill) and masked (C-a of the roadmap);
 // q rows past sq are zero and never stored.
 //
@@ -182,14 +189,14 @@ __device__ __forceinline__ void softmax_any(
                         cap_in, cap_out);
 }
 
-// S = Q K^T of one tile into sc: 64 x HK, D / 16 k-steps, both operands
-// K-major as stored.
-template <int D>
+// S = Q K^T of one tile into sc: 64 x HK, DH / 16 k-steps (the columns
+// past DH of a D-wide tile are zero), both operands K-major as stored.
+template <int D, int DH>
 __device__ __forceinline__ void issue_s(float (&sc)[HK / 2],
                                         const Smem<D>& sm, int wg,
                                         int stage) {
 #pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
+  for (int kk = 0; kk < DH / 16; ++kk) {
     const int box = kk / 4, off = (kk % 4) * 16;
     const uint64_t da =
         gmma_desc(sm.q + box * HQ * BOX + wg * 64 * BOX + off, 16, 1024);
@@ -214,7 +221,7 @@ __device__ __forceinline__ void issue_pv(float (&acc)[D / 2],
   wgmma_commit();
 }
 
-template <int D>
+template <int DH>
 __global__ void __launch_bounds__(HOPPER_THREADS, 1)
 flash_fwd_bf16(const __grid_constant__ CUtensorMap tm_q,
                const __grid_constant__ CUtensorMap tm_k,
@@ -222,6 +229,7 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap tm_q,
                __nv_bfloat16* __restrict__ o, float* __restrict__ lse, int sq,
                int sk, int h, int kv, int causal, int window, float softcap,
                float scale) {
+  constexpr int D = padded(DH);        // the tiles' width in shared memory
   constexpr int NB = D / BOX;          // boxes per row
   extern __shared__ unsigned char smem_raw[];
   Smem<D>& sm = aligned_smem<Smem<D>>(smem_raw);
@@ -295,7 +303,7 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap tm_q,
       mbar_wait(&sm.k_full[0], 0);
       wgmma_fence();
       fence_regs(sc);
-      issue_s<D>(sc, sm, wg, 0);
+      issue_s<D, DH>(sc, sm, wg, 0);
       wgmma_wait<0>();
       fence_regs(sc);
       softmax_any(sc, m, l, alpha, ql, r0, t_begin * HK, t, sk, causal,
@@ -309,7 +317,7 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap tm_q,
       wgmma_fence();
       fence_regs(sc);
       fence_regs(acc);
-      issue_s<D>(sc, sm, wg, s);
+      issue_s<D, DH>(sc, sm, wg, s);
       issue_pv<D>(acc, pa, sm, sp);
       wgmma_wait<1>();                 // the scores are in, P V may run on
       fence_regs(sc);
@@ -346,9 +354,9 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap tm_q,
               l[r] > 0.f ? (m[r] + log2f(l[r])) * LN2 : pos_inf();
         const float inv = 1.f / fmaxf(l[r], 1e-30f);
         __nv_bfloat16* orow =
-            o + (((long)bb * sq + row) * h + hh) * D + 2 * t;
+            o + (((long)bb * sq + row) * h + hh) * DH + 2 * t;
 #pragma unroll
-        for (int j = 0; j < D / 8; ++j)
+        for (int j = 0; j < DH / 8; ++j)
           *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j) =
               __floats2bfloat162_rn(acc[4 * j + 2 * r] * inv,
                                     acc[4 * j + 2 * r + 1] * inv);
@@ -509,28 +517,28 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 // ----------------------------------------------------------------- launch
-template <int D>
+template <int DH>
 cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o,
                         float* lse, int b, int sq, int sk, int h, int kv,
                         int causal, int window, float softcap,
                         cudaStream_t stream) {
   CUtensorMap tq, tk, tv;
-  if (!tensor_map(&tq, q, b, sq, h, D, HQ) ||
-      !tensor_map(&tk, k, b, sk, kv, D, HK) ||
-      !tensor_map(&tv, v, b, sk, kv, D, HK))
+  if (!tensor_map(&tq, q, b, sq, h, DH, HQ) ||
+      !tensor_map(&tk, k, b, sk, kv, DH, HK) ||
+      !tensor_map(&tv, v, b, sk, kv, DH, HK))
     return cudaErrorInvalidValue;
-  const int smem = smem_bytes<Smem<D>>();
+  const int smem = smem_bytes<Smem<padded(DH)>>();
   static bool configured = false;   // once, so that launches can be captured
   if (!configured) {
     const cudaError_t err = cudaFuncSetAttribute(
-        flash_fwd_bf16<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        flash_fwd_bf16<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return err;
     configured = true;
   }
   const dim3 grid(h, b, (sq + HQ - 1) / HQ);
-  flash_fwd_bf16<D><<<grid, HOPPER_THREADS, smem, stream>>>(
+  flash_fwd_bf16<DH><<<grid, HOPPER_THREADS, smem, stream>>>(
       tq, tk, tv, static_cast<__nv_bfloat16*>(o), lse, sq, sk, h, kv,
-      causal, window, softcap, 1.0f / sqrtf((float)D));
+      causal, window, softcap, 1.0f / sqrtf((float)DH));
   return cudaGetLastError();
 }
 
@@ -555,6 +563,17 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o,
   return cudaGetLastError();
 }
 
+template <typename T, int D>
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
+           int b, int sq, int sk, int h, int kv, int causal, int window,
+           float softcap, cudaStream_t s) {
+  return (int)(sizeof(T) == 2
+                   ? launch_bf16<D>(q, k, v, o, lse, b, sq, sk, h, kv, causal,
+                                    window, softcap, s)
+                   : launch_f32<D>(q, k, v, o, lse, b, sq, sk, h, kv, causal,
+                                   window, softcap, s));
+}
+
 template <typename T>
 int dispatch(const void* q, const void* k, const void* v, void* o, void* lse,
              int b, int sq, int sk, int h, int kv, int dh, int causal,
@@ -563,18 +582,19 @@ int dispatch(const void* q, const void* k, const void* v, void* o, void* lse,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (b <= 0 || sq <= 0 || sk <= 0 || kv <= 0 || h % kv != 0)
     return (int)cudaErrorInvalidValue;
-  constexpr bool bf16 = sizeof(T) == 2;
-  if (dh == 64)
-    return (int)(bf16 ? launch_bf16<64>(q, k, v, o, l, b, sq, sk, h, kv,
-                                        causal, window, softcap, s)
-                      : launch_f32<64>(q, k, v, o, l, b, sq, sk, h, kv,
-                                       causal, window, softcap, s));
-  if (dh == 128)
-    return (int)(bf16 ? launch_bf16<128>(q, k, v, o, l, b, sq, sk, h, kv,
-                                         causal, window, softcap, s)
-                      : launch_f32<128>(q, k, v, o, l, b, sq, sk, h, kv,
-                                        causal, window, softcap, s));
-  return (int)cudaErrorInvalidValue;
+  switch (dh) {
+    case 64:
+      return launch<T, 64>(q, k, v, o, l, b, sq, sk, h, kv, causal, window,
+                           softcap, s);
+    case 80:
+      return launch<T, 80>(q, k, v, o, l, b, sq, sk, h, kv, causal, window,
+                           softcap, s);
+    case 128:
+      return launch<T, 128>(q, k, v, o, l, b, sq, sk, h, kv, causal, window,
+                            softcap, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace

@@ -53,6 +53,12 @@
 //     transpose bit.  Tile i's S and dP are issued with tile i - 1's dS K,
 //     so each softmax gradient overlaps a product.  Shared memory at dh
 //     128: 64 KB of Q / dO and 3 x 32 KB of K / V.
+// Head dims 64, 80 and 128.  At dh 80 (stablelm-3b) the tiles are two
+// 64-column boxes as at dh 128, TMA filling columns 80-127 with zeros
+// (padded(), hopper.cuh): the products over the head dim (S, dP) take its
+// 5 real k-steps, the products into it (dV, dK, dQ) run at N = 128 and
+// only columns 0-79 are stored; the registers and shared memory are the
+// dh-128 kernels'.
 // P and dS are each rounded to bf16 once before the product that takes
 // them, as FlashAttention does; the CPU test test_torch_flash_bwd.py holds
 // that rounding to the bf16 tolerance.  Masked pairs get P = 0 by an
@@ -467,14 +473,15 @@ __device__ __forceinline__ void tma_pair(__nv_bfloat16* a,
   }
 }
 
-// C (64 x N) = A B^T over D: A the 64 rows from row a0 of a tile of a_rows,
-// B a tile of N rows, both K-major as stored.
-template <int D, int N>
+// C (64 x N) = A B^T over the DH columns of the head dim: A the 64 rows
+// from row a0 of a tile of a_rows, B a tile of N rows, both K-major as
+// stored.
+template <int DH, int N>
 __device__ __forceinline__ void issue_abt(float (&c)[N / 2],
                                           const __nv_bfloat16* a, int a_rows,
                                           int a0, const __nv_bfloat16* b) {
 #pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
+  for (int kk = 0; kk < DH / 16; ++kk) {
     const int box = kk / 4, off = (kk % 4) * 16;
     wgmma_ss(c, gmma_desc(a + box * a_rows * BOX + a0 * BOX + off, 16, 1024),
              gmma_desc(b + box * N * BOX + off, 16, 1024), kk > 0);
@@ -578,11 +585,11 @@ __device__ __forceinline__ bool edge_tile(int q0, int k0, const Grad& gr) {
                         (gr.window > 0 && q0 + QN - 1 - k0 >= gr.window)));
 }
 
-// Rows r, r + 8 of a 64 x D accumulator tile (element i: row + 8 ((i >> 1)
-// & 1), column 8 (i >> 2) + 2 t + (i & 1)) to bf16 rows at dst0 / dst8
-// (already offset by 2 t), skipping a null row.
-template <int D>
-__device__ __forceinline__ void store_rows(const float (&acc)[D / 2],
+// Rows r, r + 8 of a 64 x N accumulator tile (element i: row + 8 ((i >> 1)
+// & 1), column 8 (i >> 2) + 2 t + (i & 1)), its first DH columns, to bf16
+// rows at dst0 / dst8 (already offset by 2 t), skipping a null row.
+template <int DH, int N>
+__device__ __forceinline__ void store_rows(const float (&acc)[N],
                                            __nv_bfloat16* dst0,
                                            __nv_bfloat16* dst8) {
 #pragma unroll
@@ -590,13 +597,13 @@ __device__ __forceinline__ void store_rows(const float (&acc)[D / 2],
     __nv_bfloat16* dst = r ? dst8 : dst0;
     if (dst == nullptr) continue;
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j)
+    for (int j = 0; j < DH / 8; ++j)
       *reinterpret_cast<__nv_bfloat162*>(dst + 8 * j) =
           __floats2bfloat162_rn(acc[4 * j + 2 * r], acc[4 * j + 2 * r + 1]);
   }
 }
 
-template <int D>
+template <int DH>
 __global__ void __launch_bounds__(TC_THREADS, 1)
 bwd_dkdv_bf16(const __grid_constant__ CUtensorMap tm_q,
               const __grid_constant__ CUtensorMap tm_k,
@@ -605,6 +612,7 @@ bwd_dkdv_bf16(const __grid_constant__ CUtensorMap tm_q,
               const float* __restrict__ lse, const float* __restrict__ delta,
               __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
               int sq, int sk, int h, int kv, Grad gr) {
+  constexpr int D = padded(DH);        // the tiles' width in shared memory
   constexpr int S = KV_STAGES;
   extern __shared__ unsigned char smem_raw[];
   DkdvSmem<D>& sm = aligned_smem<DkdvSmem<D>>(smem_raw);
@@ -686,8 +694,8 @@ bwd_dkdv_bf16(const __grid_constant__ CUtensorMap tm_q,
     wgmma_fence();
     fence_regs(st);
     fence_regs(dpt);
-    issue_abt<D, KV_BQ>(st, sm.k, KV_BK, wg * 64, sm.q[s]);
-    issue_abt<D, KV_BQ>(dpt, sm.v, KV_BK, wg * 64, sm.dout[s]);
+    issue_abt<DH, KV_BQ>(st, sm.k, KV_BK, wg * 64, sm.q[s]);
+    issue_abt<DH, KV_BQ>(dpt, sm.v, KV_BK, wg * 64, sm.dout[s]);
     wgmma_commit();
     // while the products run, thread 0 refills the stage of step i - 1 with
     // step i - 1 + S once both warpgroups have released it
@@ -720,20 +728,20 @@ bwd_dkdv_bf16(const __grid_constant__ CUtensorMap tm_q,
     if (lane == 0) mbar_arrive(&sm.empty[s]);
   }
 
-  const long kv_row = (long)kv * D;
+  const long kv_row = (long)kv * DH;
   __nv_bfloat16* out[2][2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int key = kr + 8 * r;
-    const long at = ((long)bb * sk + key) * kv_row + (long)kh * D + 2 * t;
+    const long at = ((long)bb * sk + key) * kv_row + (long)kh * DH + 2 * t;
     out[0][r] = key < sk ? dk + at : nullptr;
     out[1][r] = key < sk ? dv + at : nullptr;
   }
-  store_rows<D>(acc_k, out[0][0], out[0][1]);
-  store_rows<D>(acc_v, out[1][0], out[1][1]);
+  store_rows<DH>(acc_k, out[0][0], out[0][1]);
+  store_rows<DH>(acc_v, out[1][0], out[1][1]);
 }
 
-template <int D>
+template <int DH>
 __global__ void __launch_bounds__(TC_THREADS, 1)
 bwd_dq_bf16(const __grid_constant__ CUtensorMap tm_q,
             const __grid_constant__ CUtensorMap tm_k,
@@ -742,6 +750,7 @@ bwd_dq_bf16(const __grid_constant__ CUtensorMap tm_q,
             const float* __restrict__ lse, const float* __restrict__ delta,
             __nv_bfloat16* __restrict__ dq, int sq, int sk, int h, int kv,
             Grad gr) {
+  constexpr int D = padded(DH);        // the tiles' width in shared memory
   constexpr int S = Q_STAGES;
   extern __shared__ unsigned char smem_raw[];
   DqSmem<D>& sm = aligned_smem<DqSmem<D>>(smem_raw);
@@ -804,8 +813,8 @@ bwd_dq_bf16(const __grid_constant__ CUtensorMap tm_q,
     wgmma_fence();
     fence_regs(sc);
     fence_regs(dp);
-    issue_abt<D, Q_BK>(sc, sm.q, Q_BQ, wg * 64, sm.k[0]);
-    issue_abt<D, Q_BK>(dp, sm.dout, Q_BQ, wg * 64, sm.v[0]);
+    issue_abt<DH, Q_BK>(sc, sm.q, Q_BQ, wg * 64, sm.k[0]);
+    issue_abt<DH, Q_BK>(dp, sm.dout, Q_BQ, wg * 64, sm.v[0]);
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(sc);
@@ -824,8 +833,8 @@ bwd_dq_bf16(const __grid_constant__ CUtensorMap tm_q,
     fence_regs(sc);
     fence_regs(dp);
     fence_regs(acc);
-    issue_abt<D, Q_BK>(sc, sm.q, Q_BQ, wg * 64, sm.k[s]);
-    issue_abt<D, Q_BK>(dp, sm.dout, Q_BQ, wg * 64, sm.v[s]);
+    issue_abt<DH, Q_BK>(sc, sm.q, Q_BQ, wg * 64, sm.k[s]);
+    issue_abt<DH, Q_BK>(dp, sm.dout, Q_BQ, wg * 64, sm.v[s]);
     wgmma_commit();
     issue_ab<D, Q_BK>(acc, da, sm.k[sp]);     // dQ += dS K of tile i - 1
     wgmma_commit();
@@ -865,10 +874,10 @@ bwd_dq_bf16(const __grid_constant__ CUtensorMap tm_q,
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = r0 + 8 * r;
-    out[r] = row < sq ? dq + (((long)bb * sq + row) * h + hh) * D + 2 * t
+    out[r] = row < sq ? dq + (((long)bb * sq + row) * h + hh) * DH + 2 * t
                       : nullptr;
   }
-  store_rows<D>(acc, out[0], out[1]);
+  store_rows<DH>(acc, out[0], out[1]);
 }
 
 // ----------------------------------------------------------------- launch
@@ -934,27 +943,27 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
-template <int D>
+template <int DH>
 cudaError_t launch_bf16(const void* q, const void* k, const void* v,
                         const void* o, const void* dout, const void* lse,
                         void* dq, void* dk, void* dv, void* delta, int b,
                         int sq, int sk, int h, int kv, int causal, int window,
                         float softcap, int stages, cudaStream_t stream) {
-  constexpr int KV_SMEM = smem_bytes<DkdvSmem<D>>();
-  constexpr int Q_SMEM = smem_bytes<DqSmem<D>>();
+  constexpr int KV_SMEM = smem_bytes<DkdvSmem<padded(DH)>>();
+  constexpr int Q_SMEM = smem_bytes<DqSmem<padded(DH)>>();
   static bool configured = false;   // once, so that launches can be captured
   if (!configured) {
     cudaError_t err = cudaFuncSetAttribute(
-        bwd_dkdv_bf16<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        bwd_dkdv_bf16<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         KV_SMEM);
     if (err != cudaSuccess) return err;
-    err = cudaFuncSetAttribute(bwd_dq_bf16<D>,
+    err = cudaFuncSetAttribute(bwd_dq_bf16<DH>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                Q_SMEM);
     if (err != cudaSuccess) return err;
     configured = true;
   }
-  const float scale = 1.0f / sqrtf((float)D);
+  const float scale = 1.0f / sqrtf((float)DH);
   const Grad gr{sq, sk, causal, window, scale * LOG2E,
                 softcap > 0.f ? scale / softcap : 0.f, softcap * LOG2E,
                 scale};
@@ -962,36 +971,50 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v,
   const float* td = static_cast<const float*>(delta);
   cudaError_t err = cudaSuccess;
   if (stages & STAGE_DELTA) {
-    err = launch_delta<__nv_bfloat16>(o, dout, delta, b, sq, h, D, stream);
+    err = launch_delta<__nv_bfloat16>(o, dout, delta, b, sq, h, DH, stream);
     if (err != cudaSuccess) return err;
   }
   CUtensorMap tq, tk, tv, tdo;
   if (stages & STAGE_DKDV) {
-    if (!tensor_map(&tq, q, b, sq, h, D, KV_BQ) ||
-        !tensor_map(&tdo, dout, b, sq, h, D, KV_BQ) ||
-        !tensor_map(&tk, k, b, sk, kv, D, KV_BK) ||
-        !tensor_map(&tv, v, b, sk, kv, D, KV_BK))
+    if (!tensor_map(&tq, q, b, sq, h, DH, KV_BQ) ||
+        !tensor_map(&tdo, dout, b, sq, h, DH, KV_BQ) ||
+        !tensor_map(&tk, k, b, sk, kv, DH, KV_BK) ||
+        !tensor_map(&tv, v, b, sk, kv, DH, KV_BK))
       return cudaErrorInvalidValue;
     const dim3 grid(kv, b, (sk + KV_BK - 1) / KV_BK);
-    bwd_dkdv_bf16<D><<<grid, TC_THREADS, KV_SMEM, stream>>>(
+    bwd_dkdv_bf16<DH><<<grid, TC_THREADS, KV_SMEM, stream>>>(
         tq, tk, tv, tdo, tl, td, static_cast<__nv_bfloat16*>(dk),
         static_cast<__nv_bfloat16*>(dv), sq, sk, h, kv, gr);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }
   if (stages & STAGE_DQ) {
-    if (!tensor_map(&tq, q, b, sq, h, D, Q_BQ) ||
-        !tensor_map(&tdo, dout, b, sq, h, D, Q_BQ) ||
-        !tensor_map(&tk, k, b, sk, kv, D, Q_BK) ||
-        !tensor_map(&tv, v, b, sk, kv, D, Q_BK))
+    if (!tensor_map(&tq, q, b, sq, h, DH, Q_BQ) ||
+        !tensor_map(&tdo, dout, b, sq, h, DH, Q_BQ) ||
+        !tensor_map(&tk, k, b, sk, kv, DH, Q_BK) ||
+        !tensor_map(&tv, v, b, sk, kv, DH, Q_BK))
       return cudaErrorInvalidValue;
     const dim3 grid(h, b, (sq + Q_BQ - 1) / Q_BQ);
-    bwd_dq_bf16<D><<<grid, TC_THREADS, Q_SMEM, stream>>>(
+    bwd_dq_bf16<DH><<<grid, TC_THREADS, Q_SMEM, stream>>>(
         tq, tk, tv, tdo, tl, td, static_cast<__nv_bfloat16*>(dq), sq, sk, h,
         kv, gr);
     err = cudaGetLastError();
   }
   return err;
+}
+
+template <typename T, int D>
+int launch(const void* q, const void* k, const void* v, const void* o,
+           const void* dout, const void* lse, void* dq, void* dk, void* dv,
+           void* delta, int b, int sq, int sk, int h, int kv, int causal,
+           int window, float softcap, int stages, cudaStream_t s) {
+  return (int)(sizeof(T) == 2
+                   ? launch_bf16<D>(q, k, v, o, dout, lse, dq, dk, dv, delta,
+                                    b, sq, sk, h, kv, causal, window, softcap,
+                                    stages, s)
+                   : launch_f32<D>(q, k, v, o, dout, lse, dq, dk, dv, delta,
+                                   b, sq, sk, h, kv, causal, window, softcap,
+                                   s));
 }
 
 template <typename T>
@@ -1003,22 +1026,15 @@ int dispatch(const void* q, const void* k, const void* v, const void* o,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (b <= 0 || sq <= 0 || sk <= 0 || kv <= 0 || h % kv != 0)
     return (int)cudaErrorInvalidValue;
-  constexpr bool bf16 = sizeof(T) == 2;
-  if (dh == 64)
-    return (int)(bf16 ? launch_bf16<64>(q, k, v, o, dout, lse, dq, dk, dv,
-                                        delta, b, sq, sk, h, kv, causal,
-                                        window, softcap, stages, s)
-                      : launch_f32<64>(q, k, v, o, dout, lse, dq, dk, dv,
-                                       delta, b, sq, sk, h, kv, causal,
-                                       window, softcap, s));
-  if (dh == 128)
-    return (int)(bf16 ? launch_bf16<128>(q, k, v, o, dout, lse, dq, dk, dv,
-                                         delta, b, sq, sk, h, kv, causal,
-                                         window, softcap, stages, s)
-                      : launch_f32<128>(q, k, v, o, dout, lse, dq, dk, dv,
-                                        delta, b, sq, sk, h, kv, causal,
-                                        window, softcap, s));
-  return (int)cudaErrorInvalidValue;
+#define BWD_ARGS q, k, v, o, dout, lse, dq, dk, dv, delta, b, sq, sk, h, kv, \
+                 causal, window, softcap, stages, s
+  switch (dh) {
+    case 64: return launch<T, 64>(BWD_ARGS);
+    case 80: return launch<T, 80>(BWD_ARGS);
+    case 128: return launch<T, 128>(BWD_ARGS);
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef BWD_ARGS
 }
 
 }  // namespace

@@ -18,6 +18,14 @@ constexpr float LOG2E = 1.4426950408889634f;
 constexpr int WG = 128;            // threads per warpgroup
 constexpr int BOX = 64;            // elements in one 128-byte swizzled row
 
+// A head dim rounded up to whole 64-element boxes: the width a tile of a
+// dh-wide tensor takes in shared memory (dh 80 -> 128).  TMA reads the
+// columns past dh as zeros (its bounds check), so a product over them adds
+// nothing and an output column past dh is never stored.
+__host__ __device__ constexpr int padded(int dh) {
+  return (dh + BOX - 1) / BOX * BOX;
+}
+
 // 2^x on the SFU, without exp2f's handling of denormal results
 __device__ __forceinline__ float fexp2(float x) {
   float y;
@@ -251,7 +259,7 @@ EncodeTiled encode_tiled() {
 
 // Rank-4 map over (dh, heads, seq, batch) of a contiguous (batch, seq,
 // heads, dh) bf16 tensor; a box is (64, 1, rows, 1), 128-byte swizzled, and
-// rows past seq read as zero.
+// rows past seq and columns past dh read as zero.
 bool tensor_map(CUtensorMap* map, const void* base, int b, int s, int heads,
                 int dh, int rows) {
   EncodeTiled fn = encode_tiled();

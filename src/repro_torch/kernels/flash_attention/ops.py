@@ -28,7 +28,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention.ref import (attention_bwd_ref,
                                                      attention_ref)
 
-HEAD_DIMS = (64, 128)
+HEAD_DIMS = (64, 80, 128)
 _ENTRY = {torch.float32: "flash_attention_f32",
           torch.bfloat16: "flash_attention_bf16"}
 _ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + \

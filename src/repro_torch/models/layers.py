@@ -16,7 +16,6 @@ import math
 
 import torch
 import torch.nn.functional as F
-from torch.distributed.tensor import DTensor
 
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.param import ParamSpec
@@ -249,6 +248,26 @@ def route(x, router, k: int):
     return logits, probs, sorted_w[..., :k], sorted_e[..., :k]
 
 
+def _dispatch(x, tok_of_slot, E: int):
+    """The expert-major rows (E, G C, d) of x (G, S, d): slot (e, c) of
+    group g is token ``tok_of_slot[g, e C + c]`` of that group."""
+    G, S, d = x.shape
+    C = tok_of_slot.shape[1] // E
+    rows = tok_of_slot.view(G, E, C).transpose(0, 1) \
+        + (torch.arange(G, device=x.device) * S)[None, :, None]
+    return x.reshape(G * S, d)[rows.reshape(E, G * C)]
+
+
+def _combine(out, inv, w):
+    """The MoE output (G, S, d): each token's k expert rows of ``out``
+    (G, E C + 1, d; the last row zero, for dropped choices) at the slots
+    ``inv`` (G, S k), weighted by ``w`` (G, S, k) and summed."""
+    G, S, k = w.shape
+    d = out.shape[-1]
+    picked = out.gather(1, inv[..., None].expand(G, S * k, d))
+    return torch.einsum("gskd,gsk->gsd", picked.view(G, S, k, d), w)
+
+
 def moe_mlp(x, p, cfg: ModelConfig, sh=None):
     """Top-k token-choice MoE with sort-based dispatch (GShard-style
     capacity).
@@ -269,30 +288,38 @@ def moe_mlp(x, p, cfg: ModelConfig, sh=None):
     tok_of_slot = gather_tok // k                                # (G, E*C)
 
     # expert-major rows: (E, G*C, d), one bmm over E per product
-    rows = tok_of_slot.view(G, E, C).transpose(0, 1) \
-        + (torch.arange(G, device=x.device) * S)[None, :, None]
-    xe = x.reshape(G * S, d)[rows.reshape(E, G * C)]
-    if sh is not None:
-        xe = sh(xe, "experts", None, None)
+    if sh is None:
+        xe = _dispatch(x, tok_of_slot, E)
+    else:
+        # on each rank's own rows, as the combine below; then each rank
+        # keeps its experts' rows
+        xe = sh.local_call(lambda xl, tl: _dispatch(xl, tl, E),
+                           [(x, ("batch", None, None)),
+                            (tok_of_slot, ("batch", None))],
+                           [((None, "batch", None), (E, G * C, d))])
+        xe = sh(xe, "experts", "batch", None)
     h = torch.bmm(xe, p["w_in"])
     h = act(h) * torch.bmm(xe, p["w_gate"]) if cfg.gated else act(h)
     if sh is not None:
-        h = sh(h, "experts", None, "mlp")
-    out = torch.bmm(h, p["w_out"]).view(E, G, C, d).transpose(0, 1) \
-        .reshape(G, E * C, d)
+        h = sh(h, "experts", "batch", "mlp")
+    out = torch.bmm(h, p["w_out"])
+    if sh is not None:
+        out = sh(out, "experts", "batch", None)
+    out = out.view(E, G, C, d).transpose(0, 1).reshape(G, E * C, d)
     # zero row for dropped tokens, then combine by gather
     out = torch.cat([out, out.new_zeros(G, 1, d)], dim=1)
-    picked = out.gather(1, inv[..., None].expand(G, S * k, d))
-    picked = picked.view(G, S, k, d)
-    w = top_w.to(picked.dtype)
-    if isinstance(picked, DTensor):
-        # DTensor's einsum reshapes the sharded operands into a view their
-        # placements cannot take (granite at prefill_32k); the product and
-        # sum over k take the same values, summed in another order
-        y = (picked * w[..., None]).sum(2)
+    w = top_w.to(out.dtype)
+    if sh is None:
+        y = _combine(out, inv, w)
     else:
-        y = torch.einsum("gskd,gsk->gsd", picked, w)
-    if sh is not None:
+        # on each rank's own rows (batch-sharded, where ``inv`` is): left to
+        # DTensor, the gather's backward makes its zeros and its gradient of
+        # ``out`` whole on every rank (granite at train_4k), and its einsum
+        # reshapes sharded operands into a view their placements cannot
+        # take (granite at prefill_32k)
+        rows = ("batch", None, None)
+        y = sh.local_call(_combine, [(out, rows), (inv, ("batch", None)),
+                                     (w, rows)], [(rows, (G, S, d))])
         y = sh(y, "batch", "seq", None)
 
     # load-balance + router-z auxiliary losses (Switch/GShard standard)

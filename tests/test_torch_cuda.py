@@ -67,6 +67,13 @@ FLASH_SHAPES = [
     (1, 100, 229, 24, 8, 64, True, 0, 0.0),
     (2, 200, 200, 48, 8, 128, True, 0, 0.0),
     (1, 131, 259, 48, 8, 128, True, 0, 0.0),
+    # stablelm-3b's head dim 80 (two 64-column boxes, columns 80-127 zero):
+    # its heads (32 / 32: g 1) causal with ragged tiles; g 4 with a window
+    # and softcap; non-causal, ragged; causal sq < sk
+    (2, 200, 200, 32, 32, 80, True, 0, 0.0),
+    (1, 300, 300, 8, 2, 80, True, 150, 30.0),
+    (2, 129, 127, 4, 4, 80, False, 0, 0.0),
+    (1, 65, 129, 4, 1, 80, True, 0, 0.0),
 ]
 DECODE_SHAPES = [                 # (b, S, h, kv, dh, window, softcap)
     (2, 512, 4, 2, 64, 0, 0.0),
@@ -84,6 +91,11 @@ DECODE_SHAPES = [                 # (b, S, h, kv, dh, window, softcap)
     # granite's heads (g 3, dh 64) and dbrx's (g 6, dh 128), ragged caches
     (3, 777, 24, 8, 64, 0, 0.0),
     (2, 1029, 48, 8, 128, 0, 0.0),
+    # stablelm-3b's head dim 80: its heads (g 1) over a ragged cache; g 4
+    # with a window and softcap; g 16
+    (3, 777, 32, 32, 80, 0, 0.0),
+    (2, 512, 8, 2, 80, 128, 50.0),
+    (1, 300, 16, 1, 80, 0, 30.0),
 ]
 
 
@@ -416,6 +428,53 @@ def test_decode_kernel_edge_lengths_on_card(cuda, dtype, window):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("window,softcap", ((0, 0.0), (100, 30.0)))
+def test_decode_kernel_edge_lengths_at_dh80_on_card(cuda, dtype, window,
+                                                    softcap):
+    """stablelm's head dim 80 and heads per kv head (g 1): lengths 0, 1,
+    one split - 1, one split, one split + 1 and S, with and without a
+    window and softcap."""
+    S, b, kv = 1000, 6, 4
+    chunk, _ = decode_ops.split_plan(
+        S, torch.cuda.get_device_properties(cuda).multi_processor_count,
+        b * kv)
+    lengths = [0, 1, chunk - 1, chunk, chunk + 1, S]
+    q, k, v, lens = _decode_lengths_case(cuda, dtype, S, lengths, window,
+                                         h=4, kv=kv, dh=80)
+    kw = dict(window=window, softcap=softcap)
+    out = decode_ops.decode_attention(q, k, v, lens, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(out[0], torch.zeros_like(out[0]))
+    ref = decode_attention_ref(q, k, v, lens, **kw)
+    torch.testing.assert_close(out.float(), ref.float(), atol=TOL[dtype],
+                               rtol=TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dh", (96, 32))
+def test_kernels_refuse_other_head_dims_on_card(cuda, dh):
+    """A head dim outside HEAD_DIMS (64, 80, 128) raises on the card,
+    before any launch, in each attention wrapper: no plain fallback."""
+    assert dh not in flash_ops.HEAD_DIMS and dh not in decode_ops.HEAD_DIMS
+    q, k, v, do = _bwd_inputs(cuda, "bfloat16", 1, 16, 16, 4, 2, dh)
+    lse = torch.zeros((1, 4, 16), device=cuda)
+    lens = torch.full((1,), 16, dtype=torch.int32, device=cuda)
+    before = (flash_ops.flash_attention.launches,
+              flash_ops.flash_attention_bwd.launches,
+              decode_ops.decode_attention.launches)
+    with pytest.raises(ValueError, match=f"head_dim {dh}"):
+        flash_ops.flash_attention(q, k, v)
+    with pytest.raises(ValueError, match=f"head_dim {dh}"):
+        flash_ops.flash_attention_bwd(q, k, v, q, do, lse)
+    with pytest.raises(ValueError, match=f"head_dim {dh}"):
+        decode_ops.decode_attention(q[:, 0].contiguous(), k, v, lens)
+    assert (flash_ops.flash_attention.launches,
+            flash_ops.flash_attention_bwd.launches,
+            decode_ops.decode_attention.launches) == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
 def test_decode_kernel_in_cuda_graph_reads_lengths_on_device(cuda, dtype):
     """One capture, two replays with lengths changed in place between
     them: the wrapper must not read lengths on the host."""
@@ -513,6 +572,36 @@ def test_flash_bwd_kernel_vs_plain_on_card(cuda, b, sq, sk, h, kv, dh,
         assert g.dtype == t.dtype and g.shape == t.shape
         assert torch.isfinite(g.float()).all()
         torch.testing.assert_close(g.float(), r.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_flash_bwd_dkdv_at_g1_dh80_on_card(cuda, dtype):
+    """stablelm's attention (MHA: g 1, head dim 80) at a training shape:
+    each key block's dK / dV come from its one query head, over q tiles
+    that end past sq (300: ragged) under a causal mask; dK and dV against
+    the plain version's, and the same with the heads as one batch (a
+    head's gradients depend on its own head only)."""
+    b, s, h, dh = 2, 300, 16, 80
+    q, k, v, do = _bwd_inputs(cuda, dtype, b, s, s, h, h, dh)
+    kw = dict(causal=True, window=0, softcap=0.0)
+    out, lse = flash_ops.flash_attention_with_lse(q, k, v, **kw)
+    _, dk, dv = flash_ops.flash_attention_bwd(q, k, v, out, do, lse, **kw)
+    torch.cuda.synchronize()
+    tol = TOL[dtype]
+    _, rk, rv = attention_bwd_ref(q, k, v, do, **kw)
+    torch.testing.assert_close(dk.float(), rk.float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(dv.float(), rv.float(), atol=tol, rtol=tol)
+
+    def heads_as_batch(t):
+        return t.transpose(1, 2).reshape(b * h, s, 1, dh).contiguous()
+
+    qh, kh, vh, doh = (heads_as_batch(t) for t in (q, k, v, do))
+    oh, lh = flash_ops.flash_attention_with_lse(qh, kh, vh, **kw)
+    _, dkh, dvh = flash_ops.flash_attention_bwd(qh, kh, vh, oh, doh, lh, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(dkh, heads_as_batch(dk))
+    assert torch.equal(dvh, heads_as_batch(dv))
 
 
 @pytest.mark.cuda

@@ -197,7 +197,7 @@ def dryrun_records(tmp_path_factory):
     _dryrun(tmp, "--arch", "yi-9b", "--shape", "all", "--mesh", "single")
     _dryrun(tmp, "--arch", "mamba2-2.7b", "--shape", "long_500k", "--mesh",
             "single")
-    _dryrun(tmp, "--arch", "granite-moe-3b-a800m", "--shape", "prefill_32k",
+    _dryrun(tmp, "--arch", "granite-moe-3b-a800m", "--shape", "all",
             "--mesh", "single")
     return {p.stem: json.loads(p.read_text()) for p in tmp.glob("*.json")}
 
@@ -205,7 +205,9 @@ def dryrun_records(tmp_path_factory):
 @pytest.mark.parametrize("name", [
     "yi-9b__train_4k__pod1", "yi-9b__prefill_32k__pod1",
     "yi-9b__decode_32k__pod1", "mamba2-2.7b__long_500k__pod1",
-    "granite-moe-3b-a800m__prefill_32k__pod1"])
+    "granite-moe-3b-a800m__prefill_32k__pod1",
+    "granite-moe-3b-a800m__train_4k__pod1",
+    "granite-moe-3b-a800m__decode_32k__pod1"])
 def test_dryrun_cells_write_ok_records(dryrun_records, name):
     rec = dryrun_records[name]
     assert rec["ok"], rec.get("error")
@@ -220,6 +222,23 @@ def test_dryrun_cells_write_ok_records(dryrun_records, name):
     assert {kinds[k] for k in counts if k in kinds} == set(c["coll_by_kind"])
     assert roofline.from_record(rec).step_time_s > 0
     assert dryrun_records["yi-9b__long_500k__pod1"]["skipped"]
+
+
+def test_granite_train_cell_fits_the_einsum_combine_count(dryrun_records):
+    """granite x train_4k on (data 16, model 16) counts at most 65.97 GiB
+    a device, what the MoE combine's einsum on whole tensors counted (an
+    H100 holds 80 GB): ``moe_mlp`` dispatches and combines each rank's own
+    rows (``Sharder.local_call``), where DTensor's gather backward held
+    whole (G, E C + 1, d) tensors on every rank (115.36 GiB).  Its other
+    cells stay ok, long_500k not applicable."""
+    cells_of = {shape: dryrun_records[f"granite-moe-3b-a800m__{shape}__pod1"]
+                for shape in ("train_4k", "prefill_32k", "decode_32k",
+                              "long_500k")}
+    assert cells_of["train_4k"]["memory"]["peak_bytes_est"] \
+        <= 65.97 * 2**30
+    assert all(cells_of[s]["ok"] for s in ("train_4k", "prefill_32k",
+                                           "decode_32k"))
+    assert cells_of["long_500k"]["skipped"]
 
 
 def test_dryrun_argument_bytes_equal_the_reference_specs(dryrun_records):
