@@ -106,11 +106,20 @@ Phases (each raises on failure, so any failed check exits non-zero):
                 Delta by one cycle of the port's SyncDaemon, restored by
                 ServeEngine.from_lake through Iceberg (every tensor equal)
                 and served (the trainer's weights' tokens)
+ 15. train    - mamba2-2.7b at full width, 4 layers, as phase 7 trains
+                yi-9b: each step through the SSD forward kernels (8
+                launches: remat) and the SSD backward kernels (4), a Hudi
+                checkpoint translated by the port's SyncDaemon, resumed
+                through Iceberg with equal state and step-4 loss
 Phase 3 also holds the flash-attention backward kernel against its plain
 version (autograd through the forward's) and times it at the training
-shape, whole and each of its three kernels alone; phase 4 also holds every
-gradient of a 2-layer fp32 train step of yi-9b and of stablelm-3b on the
-card against the CPU's at 2e-3.
+shape, whole and each of its three kernels alone, and the SSD backward
+kernels against theirs (ssd_bwd_ref) at mamba2's train shape, g 3,
+jamba's widths and from a state with a final-state gradient, both dtypes,
+timed at the train shape whole and each of its four kernels alone; phase
+4 also holds every gradient of a 2-layer fp32 train step of yi-9b,
+stablelm-3b and mamba2-2.7b (prompt 300: the pad path) on the card against
+the CPU's at 2e-3.
 The last two lines are the kernels JSON line and the result line.
 """
 
@@ -149,7 +158,7 @@ from repro_torch.kernels.flash_attention import ops as flash_ops  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import (  # noqa: E402
     attention_bwd_ref, attention_lse_ref, attention_ref)
 from repro_torch.kernels.ssd import ops as ssd_ops  # noqa: E402
-from repro_torch.kernels.ssd.ref import ssd_ref  # noqa: E402
+from repro_torch.kernels.ssd.ref import ssd_bwd_ref, ssd_ref  # noqa: E402
 from repro_torch.launch import cost, roofline  # noqa: E402
 from repro_torch.lst import FORMATS, LocalFS, chunkfile  # noqa: E402
 from repro_torch.lst.catalog import Catalog, TablePointer, ViewRef  # noqa: E402
@@ -270,6 +279,9 @@ DECODE_DH80 = (SERVE_B, SERVE_CACHE, *STABLELM_HEADS, 0, 0.0)
 # phase 14 (the paper's Scenario 3): stablelm-3b at full width cut to
 # TRAIN_LAYERS layers, trained SCENARIO_STEPS steps
 SCENARIO_STEPS = 4
+# phase 15's peak learning rate: at phase 7's 1e-3 mamba2-2.7b's loss rises
+# at step 3 in fp32 as in bf16 (tools/ssd_train_diag.py); at 3e-4 it falls
+MAMBA2_PEAK_LR = 3e-4
 # phase 8's traffic: gemma2-27b's local layers' window bites in prefill and
 # their 4096-slot ring wraps in decode
 GEMMA_PROMPTS, GEMMA_NEW, GEMMA_CACHE = (5120, 4096, 3072, 2048), 32, 6144
@@ -288,18 +300,21 @@ ROUTE_TIE = 1e-5
 KERNELS = {"flash_attention": flash_ops.flash_attention,
            "decode_attention": decode_ops.decode_attention,
            "ssd_chunk_scan": ssd_ops.ssd_chunk_scan,
-           "flash_attention_bwd": flash_ops.flash_attention_bwd}
+           "flash_attention_bwd": flash_ops.flash_attention_bwd,
+           "ssd_chunk_scan_bwd": ssd_ops.ssd_chunk_scan_bwd}
 SOURCES = {"flash_attention": "src/repro_torch/kernels/flash_attention/csrc/"
                               "flash_attention.cu",
            "flash_attention_bwd": "src/repro_torch/kernels/flash_attention/"
                                   "csrc/flash_attention_bwd.cu",
            "decode_attention": "src/repro_torch/kernels/decode_attention/"
                                "csrc/decode_attention.cu",
-           "ssd_chunk_scan": "src/repro_torch/kernels/ssd/csrc/ssd.cu"}
+           "ssd_chunk_scan": "src/repro_torch/kernels/ssd/csrc/ssd.cu",
+           "ssd_chunk_scan_bwd": "src/repro_torch/kernels/ssd/csrc/ssd_bwd.cu"}
 REPLACES = {"flash_attention": "src/repro/kernels/flash_attention/kernel.py:81",
             "flash_attention_bwd": "src/repro/models/layers.py:101",
             "decode_attention": "src/repro/kernels/decode_attention/kernel.py:76",
-            "ssd_chunk_scan": "src/repro/kernels/ssd/kernel.py:72"}
+            "ssd_chunk_scan": "src/repro/kernels/ssd/kernel.py:72",
+            "ssd_chunk_scan_bwd": "src/repro/models/ssm.py:95"}
 
 
 def log(msg: str) -> None:
@@ -370,6 +385,21 @@ def zero_counts() -> None:
 
 def counts() -> dict:
     return {name: fn.launches for name, fn in KERNELS.items()}
+
+
+def want_counts(**n) -> dict:
+    """A launch count of every kernel: ``n``'s, else 0."""
+    return {name: n.get(name, 0) for name in KERNELS}
+
+
+def train_want(cfg) -> dict:
+    """The launches of one train step of ``cfg`` with per-cycle remat:
+    each attention layer's flash forward twice and its backward once,
+    each SSM layer's SSD forward twice and its backward once."""
+    n_flash, _, n_ssm = _layer_kinds(cfg)
+    return want_counts(flash_attention=2 * n_flash,
+                       flash_attention_bwd=n_flash,
+                       ssd_chunk_scan=2 * n_ssm, ssd_chunk_scan_bwd=n_ssm)
 
 
 # ------------------------------------------------------------------ phases
@@ -839,6 +869,146 @@ def ssd_at(gen, shape) -> dict:
     return rec
 
 
+# (b, s, h, p, g, n, chunk) of phase 3's SSD backward checks: mamba2-2.7b's
+# train shape (phase 15's), g > 1, jamba's widths; the second also from an
+# initial state with a final-state gradient
+_M2 = get_config("mamba2-2.7b").ssm
+SSD_BWD_SHAPES = [((TRAIN_B, TRAIN_S, _M2.n_heads, _M2.head_dim, _M2.n_groups,
+                    _M2.d_state, _M2.chunk), False),
+                  ((2, 512, 6, 64, 3, 64, 128), False),
+                  ((1, 128, 4, 1, 1, 16, 16), False),
+                  ((2, 512, 6, 64, 3, 64, 128), True)]
+# ddt and dA besides within this much of their largest entry: the chunked
+# decay gradient carries each row's fp32 rounding of C . dC - x' . dx' to
+# the earlier rows of its chunk (kernels/ssd/ref.py)
+SSD_BWD_SCALE_TOL = 2e-5
+SSD_BWD_NAMES = ("dx", "ddt", "dA", "dB", "dC", "dinit")
+
+
+def _ssd_bwd_inputs(gen, shape, dtype, with_state: bool):
+    """x, dt, A, B, C, init, dy, dstate on the card (init and dstate None
+    without ``with_state``)."""
+    b, s, h, p, g, n = shape[:6]
+    x, dt, A, B, C = _ssd_inputs(gen, shape, dtype)
+    dy = torch.randn((b, s, h, p), generator=gen, device="cuda").to(dtype)
+    init = dstate = None
+    if with_state:
+        init, dstate = (torch.randn((b, h, n, p), generator=gen,
+                                    device="cuda") for _ in "ab")
+    return x, dt, A, B, C, init, dy, dstate
+
+
+def _ssd_bwd_stage_errors(args, q: int) -> dict:
+    """Each backward kernel's scratch against its plain stage (to say which
+    kernel disagrees): entering states, leaving gradients, <S_out, dS>,
+    dinit; dx and x . dx'; each row's d cum."""
+    from repro_torch.kernels.ssd import ref as R
+    x, dt, A, B, C, init, dy, dstate = args
+    buffers = ssd_ops.bwd_buffers(x, B, q)
+    st = R.bwd_chunk_states(x, dt, A, B, C, dy, q)
+    prev, grads, dinit, delta = R.bwd_state_pass(*st, init, dstate)
+    dx, _, _, direct, dcum = R.bwd_chunk_grads(x, dt, A, B, C, dy, q, prev,
+                                               grads)
+    ssd_ops.launch_bwd(x, dt, A, B, C, dy, q, init, dstate, buffers,
+                       ssd_ops.BWD_STAGES["states"]
+                       | ssd_ops.BWD_STAGES["keys"]
+                       | ssd_ops.BWD_STAGES["queries"])
+    torch.cuda.synchronize()
+    return {"prev": max_err(buffers[6], prev),
+            "grads": max_err(buffers[7], grads),
+            "delta": max_err(buffers[8], delta),
+            "dinit": max_err(buffers[5], dinit), "dx": max_err(buffers[0], dx),
+            "ddt_direct": max_err(buffers[1], direct),
+            "dcum": max_err(buffers[9], dcum)}
+
+
+def _ssd_bwd_check(gen, shape, dtype, with_state: bool) -> tuple:
+    """One backward call (four kernels) against ``ssd_bwd_ref`` on the same
+    inputs: dx, dB, dC, dinit within SSD_TOL (abs + rel), ddt and dA within
+    it plus SSD_BWD_SCALE_TOL of their largest entry.  On a miss each
+    kernel's stage is compared too.  Returns the inputs and the largest
+    error of dx, dB, dC and dinit."""
+    args = _ssd_bwd_inputs(gen, shape, dtype, with_state)
+    x, dt, A, B, C, init, dy, dstate = args
+    q = min(shape[6], shape[1])
+    got = ssd_ops.ssd_chunk_scan_bwd(x, dt, A, B, C, dy, chunk=q, init=init,
+                                     dstate=dstate)
+    torch.cuda.synchronize()
+    refs = ssd_bwd_ref(x, dt, A, B, C, init, dy, dstate, chunk=q)
+    errs = {n: max_err(g, r) for n, g, r in zip(SSD_BWD_NAMES, got, refs)}
+    tol = SSD_TOL[dtype]
+    bad = []
+    for n, g, r in zip(SSD_BWD_NAMES, got, refs):
+        atol = tol + (SSD_BWD_SCALE_TOL * float(r.abs().max())
+                      if n in ("ddt", "dA") else 0.0)
+        g = g.float()
+        if not (torch.isfinite(g).all()
+                and ((g - r).abs() <= atol + tol * r.abs()).all()):
+            bad.append(n)
+    log(f"  ssd bwd {shape} x/B/C {str(dtype)[6:]}"
+        f"{' from a state' if with_state else ''}: max_abs_err "
+        + " ".join(f"{n} {e:.3g}" for n, e in errs.items()))
+    if bad:
+        raise AssertionError(
+            f"ssd_chunk_scan_bwd {shape} {dtype}: {bad} off by {errs}; the "
+            f"kernels' stages: {_ssd_bwd_stage_errors(args, q)}")
+    del refs, got
+    return args, max(errs[n] for n in ("dx", "dB", "dC", "dinit"))
+
+
+def ssd_bwd_kernel_times(args, q: int) -> dict:
+    """Device ms of each of the backward's kernels alone, and of all four,
+    on one set of buffers (the op allocates its own in every call)."""
+    x, dt, A, B, C, init, dy, dstate = args
+    buffers = ssd_ops.bwd_buffers(x, B, q)
+    stages = {**ssd_ops.BWD_STAGES, "all": ssd_ops.BWD_ALL_STAGES}
+    return {name: time_ms(lambda *a, bit=bit: ssd_ops.launch_bwd(
+                *a, q, init, dstate, buffers, bit), [(x, dt, A, B, C, dy)], 3)
+            for name, bit in stages.items()}
+
+
+def phase_ssd_bwd(gen) -> dict:
+    """The SSD backward kernels against ``ssd_bwd_ref`` at SSD_BWD_SHAPES in
+    both dtypes, then, at mamba2-2.7b's train shape in bf16, the op's time
+    in a CUDA graph, each kernel alone, the plain version's time and the
+    bound (no single PyTorch call computes it: ``library_ms`` null)."""
+    for dtype in (torch.float32, torch.bfloat16):
+        for shape, with_state in SSD_BWD_SHAPES:
+            if shape != SSD_BWD_SHAPES[0][0] or dtype == torch.float32:
+                _ssd_bwd_check(gen, shape, dtype, with_state)
+            torch.cuda.empty_cache()
+    main_shape = SSD_BWD_SHAPES[0][0]
+    dtype = torch.bfloat16
+    args, err = _ssd_bwd_check(gen, main_shape, dtype, False)
+    b, s, h, p, g, n, chunk = main_shape
+    q = min(chunk, s)
+    x, dt, A, B, C, init, dy, dstate = args
+    ms = time_ms(lambda *a: ssd_ops.ssd_chunk_scan_bwd(*a, chunk=q),
+                 [(x, dt, A, B, C, dy)], 3)
+    kernels_ms = ssd_bwd_kernel_times(args, q)
+    log("  ssd bwd bf16 train shape, each kernel alone and all four on one "
+        "set of buffers (ms): " + json.dumps(kernels_ms))
+    plain_ms = time_eager_ms(lambda: ssd_bwd_ref(x, dt, A, B, C, None, dy,
+                                                 None, chunk=q), 1)
+    torch.cuda.empty_cache()
+    flops, nbytes = cost.ssd_bwd_work(*main_shape, x.element_size())
+    bms, by = bound_ms(flops, nbytes, dtype)
+    rec = _kernel_record("ssd_chunk_scan_bwd", "ssd_chunk_scan_bwd",
+                         max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                         bound_ms=bms, bound_by=by, library_ms=None)
+    log(json.dumps({"kernel_check": rec["name"], "shape": list(main_shape),
+                    "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                    "library_ms": None, "bound_us": bms * 1e3,
+                    "flops": flops, "bytes": nbytes,
+                    "achieved_tflops": flops / ms / 1e9,
+                    "kernels_ms": kernels_ms,
+                    "tile": ssd_ops.bwd_plan(q, n, p),
+                    "smem": ssd_ops.bwd_smem_bytes(ssd_ops.bwd_plan(q, n, p),
+                                                   q, n, p),
+                    "check_launches": ssd_ops.ssd_chunk_scan_bwd.launches}))
+    return rec
+
+
 def _layer_kinds(cfg) -> tuple:
     """(flash launches of a prefill or forward pass, decode launches of a
     decode step, SSM layers) of ``cfg``: one flash launch per self-attention
@@ -975,8 +1145,8 @@ def phase_model(arch: str, seed: int, s: int, fan_in_std: bool = False,
             raise AssertionError(f"{arch}: every row holds a near-tie")
     errs = [max_err(lc[keep], lp[keep]) for lc, lp in logits]
     n_flash, n_decode, n_ssm = _layer_kinds(cfg)
-    want = {"flash_attention": n_flash, "decode_attention": 2 * n_decode,
-            "ssd_chunk_scan": n_ssm, "flash_attention_bwd": 0}
+    want = want_counts(flash_attention=n_flash, decode_attention=2 * n_decode,
+                       ssd_chunk_scan=n_ssm)
     log(f"  model {arch} width {cfg.d_model}, 2 layers, fp32, b={b}, "
         f"prompt {s}: logits max_abs_err prefill {errs[0]:.3g}, decode "
         f"{errs[1]:.3g} {errs[2]:.3g} (tol {tol}); launches {launches}"
@@ -1018,9 +1188,10 @@ def well_conditioned(tpl):
 
 def phase_model_grads(seed: int, arch: str = "yi-9b", s: int = 128) -> None:
     """Full width, 2 layers, fp32: the loss and every parameter's gradient
-    of the train loss on the card (flash forward and backward kernels,
-    per-cycle remat) against the plain CPU path on the same weights and
-    batch (b 1), block weights at std 1/sqrt(fan-in) (``well_conditioned``).
+    of the train loss on the card (flash forward and backward kernels, or
+    for an SSM the SSD forward and backward kernels; per-cycle remat)
+    against the plain CPU path on the same weights and batch (b 1), block
+    weights at std 1/sqrt(fan-in) (``well_conditioned``).
 
     Tolerance 2e-3, phase 4's on the logits: the loss within 2e-3, and each
     gradient within 2e-3 and within 2e-3 of its largest entry:
@@ -1042,8 +1213,7 @@ def phase_model_grads(seed: int, arch: str = "yi-9b", s: int = 128) -> None:
     rows = {n: dict(err=max_err(gc, gp), max=float(gp.abs().max()))
             for n, gc, gp in zip(names, card[1], cpu[1])}
     loss_err = abs(card[0] - cpu[0])
-    want = {"flash_attention": 2 * cfg.n_layers, "decode_attention": 0,
-            "ssd_chunk_scan": 0, "flash_attention_bwd": cfg.n_layers}
+    want = train_want(cfg)
     log(f"  train step {arch} width {cfg.d_model}, 2 layers, fp32, b 1, s {s}: "
         f"loss card {card[0]:.6f} cpu {cpu[0]:.6f} (|card - cpu| "
         f"{loss_err:.3g}, tol {tol}); launches {launches}")
@@ -1084,9 +1254,8 @@ def phase_window_fp32(seed: int, s: int = 4200, steps: int = 2) -> None:
     torch.cuda.synchronize()
     launches = counts()
     errs = [max_err(d, full[:, s - 1 + i]) for i, d in enumerate(dec)]
-    want = {"flash_attention": 2 * cfg.n_layers,
-            "decode_attention": steps * cfg.n_layers, "ssd_chunk_scan": 0,
-            "flash_attention_bwd": 0}
+    want = want_counts(flash_attention=2 * cfg.n_layers,
+                       decode_attention=steps * cfg.n_layers)
     log(f"  window check gemma2-27b width {cfg.d_model}, 2 layers, fp32, "
         f"b={b}, prompt {s} (window {cfg.cycle[0].window}, ring "
         f"{cache['s0']['k'].shape[2]} slots): prefill and decode vs teacher "
@@ -1223,7 +1392,9 @@ def profile_prefill(model, params, toks, cache_len: int) -> dict:
 # reductions, copies: the optimizer, norms, RoPE, casts, the CE's softmax)
 STEP_CLASSES = (("gemm", ("gemm", "nvjet", "xmma", "cutlass")),
                 ("flash_forward", ("flash_fwd",)),
-                ("flash_backward", ("bwd_dkdv", "bwd_dq", "bwd_delta")))
+                ("flash_backward", ("bwd_dkdv", "bwd_dq", "bwd_delta")),
+                ("ssd_backward", ("ssd_bwd_",)),
+                ("ssd_forward", ("ssd_states", "ssd_pass", "ssd_scan")))
 
 
 def profile_train_step(step_fn, params, opt_state, batch) -> tuple:
@@ -1349,8 +1520,7 @@ def phase_serve(arch: str, seed: int, kernel_ms: dict, *,
     if [o[0] for o in outs] != first:
         raise AssertionError(f"serve: first tokens {[o[0] for o in outs]} "
                              f"!= greedy prefill tokens {first}")
-    want_prefill = {"flash_attention": n_flash, "decode_attention": 0,
-                    "ssd_chunk_scan": n_ssm, "flash_attention_bwd": 0}
+    want_prefill = want_counts(flash_attention=n_flash, ssd_chunk_scan=n_ssm)
     want = dict(want_prefill, decode_attention=n_decode * decode_steps)
     if prefill_launches != want_prefill:
         raise AssertionError(f"serve: prefill launches {prefill_launches}, "
@@ -1716,18 +1886,21 @@ def time_trainer(tr) -> tuple:
     return step_fn, step_s, step_launches, save_s, saved_at
 
 
-def phase_train(card: str, seed: int) -> dict:
-    """Train yi-9b (full width, TRAIN_LAYERS layers, bf16, fp32 master)
+def phase_train(card: str, seed: int, arch: str = "yi-9b",
+                peak_lr: float = 1e-3) -> dict:
+    """Train ``arch`` (full width, TRAIN_LAYERS layers, bf16, fp32 master)
     from a lake corpus: trainer A runs 4 steps and commits its state as a
     Hudi checkpoint; the port's ``SyncDaemon`` translates the commit to
     Iceberg and Delta, warm-restarts and publishes the table to the
     catalog (``daemon_translate``); trainer B resumes through the Iceberg
     view at the path the catalog resolves.  Each of A's steps must launch
-    flash attention 2 x layers times (remat) and its backward once a
-    layer, and the loss must fall; B's restored state and loader row must
-    equal A's, and B's step-4 loss A's within 1e-3 relative.  The corpus
-    and checkpoint live in a temporary directory, removed at the end."""
-    cfg = replace(get_config("yi-9b"), n_layers=TRAIN_LAYERS)
+    each attention layer's flash forward twice (remat) and its backward
+    once, and each SSM layer's SSD forward twice and its backward once
+    (``train_want``), and the loss must fall; B's restored state and
+    loader row must equal A's, and B's step-4 loss A's within 1e-3
+    relative.  AdamW warms up to ``peak_lr`` over 2 steps.  The corpus and
+    checkpoint live in a temporary directory, removed at the end."""
+    cfg = replace(get_config(arch), n_layers=TRAIN_LAYERS)
     model = Model(cfg)
     root = Path(tempfile.mkdtemp(prefix="chip_smoke_train_"))
     try:
@@ -1737,8 +1910,8 @@ def phase_train(card: str, seed: int) -> dict:
         write_synth_corpus(fs, corpus, fmt="delta", n_docs=32,
                            pack_len=TRAIN_S + 1, vocab=cfg.vocab_size,
                            seed=seed)
-        stats = dict(layers=cfg.n_layers, batch=TRAIN_B, seq=TRAIN_S,
-                     params=count_params(model.param_template()),
+        stats = dict(arch=cfg.name, layers=cfg.n_layers, batch=TRAIN_B,
+                     seq=TRAIN_S, params=count_params(model.param_template()),
                      corpus_s=time.perf_counter() - t0,
                      disk_free_gb=shutil.disk_usage(root).free / 1e9)
 
@@ -1749,7 +1922,7 @@ def phase_train(card: str, seed: int) -> dict:
         tcfg = TrainerConfig(steps=4, save_every=0, log_every=1,
                              ckpt_format="hudi", sync_targets=(),
                              ce_chunk=128,
-                             opt=AdamWConfig(peak_lr=1e-3, warmup_steps=2,
+                             opt=AdamWConfig(peak_lr=peak_lr, warmup_steps=2,
                                              total_steps=10))
         a = Trainer(model, loader(), fs, str(root / "ckpt"), tcfg)
         t0 = time.perf_counter()
@@ -1793,8 +1966,7 @@ def phase_train(card: str, seed: int) -> dict:
             f"({stats['restart_first_cycle_puts']} puts), idle cycle "
             f"{stats['restart_idle_cycle_requests']} request(s) a table; "
             f"card {card}")
-        want = {"flash_attention": 2 * cfg.n_layers, "decode_attention": 0,
-                "ssd_chunk_scan": 0, "flash_attention_bwd": cfg.n_layers}
+        want = train_want(cfg)
         for i, c in enumerate(step_launches):
             if c != want:
                 raise AssertionError(f"train step {i}: launches {c}, want "
@@ -1898,8 +2070,7 @@ def phase_scenario3(card: str, seed: int) -> dict:
             save_s=save_s[0], **daemon_stats,
             launches={name: sum(c[name] for c in step_launches)
                       for name in KERNELS})
-        want = {"flash_attention": 2 * cfg.n_layers, "decode_attention": 0,
-                "ssd_chunk_scan": 0, "flash_attention_bwd": cfg.n_layers}
+        want = train_want(cfg)
         for i, c in enumerate(step_launches):
             if c != want:
                 raise AssertionError(f"scenario 3 step {i}: launches {c}, "
@@ -2169,8 +2340,7 @@ def phase_whisper(seed: int) -> dict:
     enc = _frames(cfg, b, seed).cuda()
     kw = {"enc_embeds": enc.to(torch.bfloat16)}
     n_flash, n_decode, _ = _layer_kinds(cfg)
-    want_prefill = {"flash_attention": n_flash, "decode_attention": 0,
-                    "ssd_chunk_scan": 0, "flash_attention_bwd": 0}
+    want_prefill = want_counts(flash_attention=n_flash)
     want_decode = dict(want_prefill, flash_attention=0,
                        decode_attention=n_decode * (new - 1))
 
@@ -2445,8 +2615,7 @@ def phase_mesh(card: str, seed: int, stats: dict) -> dict:
             if not abs(a - b) <= 2e-3 * abs(b):
                 raise AssertionError(f"mesh: step losses {res_s[0]} vs "
                                      f"{res_p[0]}")
-        want = {"flash_attention": 2 * cfg.n_layers, "decode_attention": 0,
-                "ssd_chunk_scan": 0, "flash_attention_bwd": cfg.n_layers}
+        want = train_want(cfg)
         if res_s[2] != [want] * 3 or res_p[2] != [want] * 3:
             raise AssertionError(f"mesh: step launches {res_s[2]}, "
                                  f"{res_p[2]}, want {want} each")
@@ -2496,6 +2665,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     kernels.append(phase_flash_bwd(gen, FLASH_MAIN))
     torch.cuda.empty_cache()
+    kernels.append(phase_ssd_bwd(gen))
+    torch.cuda.empty_cache()
     kernels += phase_dh80(gen, rng)
     moe_kernels = served_kernels(gen)
     torch.cuda.empty_cache()
@@ -2505,6 +2676,8 @@ def main() -> int:
     # 300 is not a multiple of the 256-row chunk: the model's pad path
     phase_model("mamba2-2.7b", args.seed, 300)
     phase_model_grads(args.seed)
+    torch.cuda.empty_cache()
+    phase_model_grads(args.seed, "mamba2-2.7b", 300)
     torch.cuda.empty_cache()
     phase_model("stablelm-3b", args.seed, 128)
     phase_model_grads(args.seed, "stablelm-3b")
@@ -2593,13 +2766,21 @@ def main() -> int:
          f"port's SyncDaemon, served from the Iceberg view")
     stats["scenario3"] = phase_scenario3(card, args.seed)
     torch.cuda.empty_cache()
+    head(f"phase 15: train, mamba2-2.7b full width, {TRAIN_LAYERS} layers, "
+         f"bf16, from the lake (SSD forward and backward kernels); the Hudi "
+         f"checkpoint translated by the port's SyncDaemon, resumed through "
+         f"Iceberg")
+    stats["train_mamba2"] = phase_train(card, args.seed, "mamba2-2.7b",
+                                        MAMBA2_PEAK_LR)
+    torch.cuda.empty_cache()
 
     # each kernel's launches on its main path: serving (phases 5 and 13) for
-    # the forward kernels, the trainers' runs (phases 7 and 14) for the
+    # the forward kernels, the trainers' runs (phases 7, 14 and 15) for the
     # backward
     path_of = {"flash_attention": "yi-9b", "decode_attention": "yi-9b",
                "ssd_chunk_scan": "mamba2-2.7b",
                "flash_attention_bwd": "train",
+               "ssd_chunk_scan_bwd": "train_mamba2",
                "flash_attention_dh80": "stablelm-3b",
                "decode_attention_dh80": "stablelm-3b",
                "flash_attention_bwd_dh80": "scenario3"}

@@ -1,8 +1,8 @@
 """Build the port's CUDA sources with ``nvcc`` and load them with ``ctypes``.
 
 Every source lives in ``kernels/<dir>/csrc/<name>.cu`` with a plain C
-interface (``<dir>`` is ``<name>`` but for the flash-attention backward,
-which sits beside its forward).  A source is compiled at first use into
+interface (``<dir>`` is ``<name>`` but for the two backwards, which sit
+beside their forwards).  A source is compiled at first use into
 ``<repo>/build/repro_torch/<name>-<hash>.so`` (the directory is
 git-ignored); the hash covers the source, the headers (``*.cuh``) beside
 it and the flags, so an edited source or header is rebuilt.
@@ -24,8 +24,9 @@ KERNELS_DIR = Path(__file__).resolve().parent
 BUILD_DIR = KERNELS_DIR.parents[2] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-SOURCES = ("flash_attention", "flash_attention_bwd", "decode_attention", "ssd")
-_DIRS = {"flash_attention_bwd": "flash_attention"}
+SOURCES = ("flash_attention", "flash_attention_bwd", "decode_attention", "ssd",
+           "ssd_bwd")
+_DIRS = {"flash_attention_bwd": "flash_attention", "ssd_bwd": "ssd"}
 
 
 def source_path(name: str) -> Path:

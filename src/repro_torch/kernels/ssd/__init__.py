@@ -1,4 +1,6 @@
-from repro_torch.kernels.ssd.ops import ssd_chunk_scan
-from repro_torch.kernels.ssd.ref import ssd_ref
+from repro_torch.kernels.ssd.ops import (SSDChunkScanFn, ssd_chunk_scan,
+                                         ssd_chunk_scan_bwd)
+from repro_torch.kernels.ssd.ref import ssd_bwd_ref, ssd_ref
 
-__all__ = ["ssd_chunk_scan", "ssd_ref"]
+__all__ = ["SSDChunkScanFn", "ssd_chunk_scan", "ssd_chunk_scan_bwd",
+           "ssd_bwd_ref", "ssd_ref"]

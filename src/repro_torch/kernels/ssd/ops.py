@@ -1,20 +1,31 @@
-"""Public wrapper of the SSD (Mamba-2) chunk-scan kernels.
+"""Public wrappers of the SSD (Mamba-2) chunk-scan kernels, forward and
+backward.
 
-CPU tensors take the plain version (``ref.ssd_ref``); CUDA tensors launch
-the CUDA kernels or raise, also when an input requires grad while grad mode
-is on (the backward is ROADMAP B6).  Past the CPU, the grad guard and the
-operand checks the call is the operator ``torch.ops.repro_torch.ssd_chunk_scan``,
-whose one implementation launches the kernels on CUDA tensors and refuses
-any other device (``launch.cost``'s counter intercepts it on ``meta``
-tensors and counts its work by formula).  ``ssd_chunk_scan.launches``
-counts calls of the op that launched on the card: one per call, whatever
-the number of kernels.
+CPU tensors take the plain versions (``ref.ssd_ref``, ``ref.ssd_bwd_ref``);
+other tensors go to the operators ``torch.ops.repro_torch.ssd_chunk_scan``
+and ``.ssd_chunk_scan_bwd``, whose one implementation launches the CUDA
+kernels on CUDA tensors and refuses any other device (``launch.cost``'s
+counter intercepts them on ``meta`` tensors and counts their work by
+formula).  ``ssd_chunk_scan`` on inputs off the CPU that need a gradient
+(grad mode on and an input requiring grad) goes through ``SSDChunkScanFn``:
+the forward kernels, and the hand-written backward kernels of
+``csrc/ssd_bwd.cu``, never a plain path.  ``ssd_chunk_scan.launches`` and
+``ssd_chunk_scan_bwd.launches`` count calls of each op that launched on
+the card: one per call, whatever the number of kernels.
 
 * bf16 x/B/C: three kernels per call (``csrc/ssd.cu``): chunk states, the
   state pass over the chunks, and the chunk scan.  The wrapper allocates y,
   the state, an fp32 scratch of the h n x p states of each (batch, chunk)
   and the chunks' decay sums; the kernels allocate nothing.
 * fp32 x/B/C: one kernel per call, on the CUDA cores in fp32.
+
+The backward (``csrc/ssd_bwd.cu``, any x/B/C dtype of the forward): four
+kernels per call, on the CUDA cores in fp32: the states entering and the
+state gradients leaving each chunk, the key rows' gradients (dx, dB), the
+query rows' (dC), and the decay gradient (ddt, dA) with the sums of dB and
+dC over each group's head tiles.  ``bwd_buffers`` allocates its outputs
+and scratch; ``launch_bwd`` launches chosen kernels of it on them,
+uncounted, so that ``chip_smoke.py`` can time and check each stage alone.
 
 The kernels read x, B and C through their batch and sequence strides, so
 the model hands them slices of one convolution output without copying; the
@@ -30,10 +41,10 @@ from dataclasses import dataclass
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.ssd.ref import ssd_ref
+from repro_torch.kernels.ssd.ref import ssd_bwd_ref, ssd_ref
 
 SMEM_LIMIT = 232_448        # shared memory one block may opt into (H100)
-TILES = (64, 32, 16)        # fp32 kernel: chunk rows per tile, the largest that fits
+TILES = (64, 32, 16)        # fp32 kernel, backward: chunk rows per tile, the largest that fits
 # bf16 kernels: q rows of a scan block, the longest chunk (one scan thread
 # per key), heads per scan block, the largest d_state and head_dim
 TQ, QMAX, HEADS_PER_BLOCK, NMAX, PMAX = 64, 256, 16, 128, 64
@@ -51,6 +62,14 @@ _ARGTYPES = {
 }
 _ENTRY = {torch.float32: "ssd_chunk_scan_f32",
           torch.bfloat16: "ssd_chunk_scan_bf16"}
+# the backward's kernels, as bits of the ``stages`` of launch_bwd
+BWD_STAGES = {"states": 1, "keys": 2, "queries": 4, "finish": 8}
+BWD_ALL_STAGES = 15
+BWD_HEADS = 16              # heads of one group per keys / queries block
+_BWD_ENTRY = {torch.float32: "ssd_chunk_scan_bwd_f32",
+              torch.bfloat16: "ssd_chunk_scan_bwd_bf16"}
+_BWD_ARGTYPES = [ctypes.c_void_p] * 20 + [ctypes.c_int] * 9 \
+    + [ctypes.c_longlong] * 6 + [ctypes.c_int, ctypes.c_void_p]
 
 
 def _round(v: int, m: int) -> int:
@@ -88,6 +107,43 @@ def plan(q: int, n: int, p: int) -> int:
     raise ValueError(
         f"SSD chunk {q}, d_state {n}, head_dim {p}: even {TILES[-1]}-row "
         f"tiles need {smem_bytes(TILES[-1], q, n, p)} bytes of shared "
+        f"memory, above the {SMEM_LIMIT} a block may use")
+
+
+def bwd_smem_bytes(tile: int, q: int, n: int, p: int) -> dict:
+    """Shared memory of one block of each backward kernel; mirrors
+    ``states_floats`` and ``pass_layout`` in ``csrc/ssd_bwd.cu``: the
+    chunk's per-row arrays (dt, two decay sums, a factor; per tile three
+    sums, and the chunk's) and, in the states kernel, the running state, an
+    n-wide and a p-wide row tile and 8 warp partials; in the keys and
+    queries kernels their own and the other tile's n- and p-wide rows, the
+    decayed scores, the n-wide accumulator and a state; keys add the
+    C B^T scores and the p-wide accumulator, queries a second n-wide one."""
+    npad, ppad = _round(n, 4), _round(p, 4)
+    ldn, ldp, ldt = _ld(npad), _ld(ppad), _ld(tile)
+    qt = _round(q, tile)
+    rows = 4 * qt + 3 * (qt // tile) + 1
+    shared = 2 * tile * (ldn + ldp) + tile * ldt + tile * ldn + npad * ldp \
+        + rows
+    return {"states": 4 * (npad * ldp + tile * (ldn + ldp) + rows + 8),
+            "keys": 4 * (shared + tile * (ldt + ldp) + 2 * tile),
+            "queries": 4 * (shared + tile * ldn + tile),
+            "finish": 32}
+
+
+def bwd_plan(q: int, n: int, p: int) -> int:
+    """Backward: tile rows for chunk ``q``, d_state ``n`` and head_dim
+    ``p``, chosen as ``plan`` chooses the forward's against the largest
+    kernel's shared memory.  Raises ValueError if none fits."""
+    for tile in TILES:
+        if tile > TILES[-1] and tile // 2 >= q:
+            continue
+        if max(bwd_smem_bytes(tile, q, n, p).values()) <= SMEM_LIMIT:
+            return tile
+    raise ValueError(
+        f"SSD backward, chunk {q}, d_state {n}, head_dim {p}: even "
+        f"{TILES[-1]}-row tiles need "
+        f"{max(bwd_smem_bytes(TILES[-1], q, n, p).values())} bytes of shared "
         f"memory, above the {SMEM_LIMIT} a block may use")
 
 
@@ -272,18 +328,18 @@ def ssd_chunk_scan(x, dt, A, B, C, *, chunk: int = 256, init=None):
     Returns (y: (b, s, h, p) in x's dtype, final_state: (b, h, n, p) fp32).
     ``s`` must be a multiple of ``min(chunk, s)``; the state starts at
     ``init``, or at 0.  On the card x/B/C are float32 or bfloat16 and
-    dt/A/init float32; bf16 launches three kernels, fp32 one.
+    dt/A/init float32; bf16 launches three kernels, fp32 one.  With a
+    gradient to take, the call is ``SSDChunkScanFn``'s (the backward
+    kernels).
     """
     q = _check_shapes(x, dt, A, B, C, chunk, init)
     if x.device.type == "cpu":
         y, state = ssd_ref(x, dt, A, B, C, init)
         return y.to(x.dtype), state
+    check_operands(x, dt, A, B, C, init)
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad for t in (x, dt, A, B, C, init)):
-        raise RuntimeError(
-            "ssd_chunk_scan: the CUDA kernels have no backward yet (ROADMAP "
-            "B6); call them under torch.no_grad() or torch.inference_mode()")
-    check_operands(x, dt, A, B, C, init)
+        return SSDChunkScanFn.apply(x, dt, A, B, C, q, init)
     return torch.ops.repro_torch.ssd_chunk_scan(x, dt, A, B, C, q, init)
 
 
@@ -319,3 +375,141 @@ _lib = torch.library.Library("repro_torch", "FRAGMENT")
 _lib.define("ssd_chunk_scan(Tensor x, Tensor dt, Tensor A, Tensor B, "
             "Tensor C, int chunk, Tensor? init) -> (Tensor, Tensor)")
 _lib.impl("ssd_chunk_scan", _op, "CompositeExplicitAutograd")
+
+
+# ------------------------------------------------------------ the backward
+@functools.cache
+def _bwd_entry(dtype):
+    """The backward's C entry for ``dtype``, with its argument types."""
+    fn = getattr(_build.library("ssd_bwd"), _BWD_ENTRY[dtype])
+    fn.argtypes = _BWD_ARGTYPES
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _check_dy(x, dy, dstate, n: int) -> None:
+    b, s, h, p = x.shape
+    if tuple(dy.shape) != (b, s, h, p) or dy.dtype != x.dtype:
+        raise ValueError(f"dy {tuple(dy.shape)} {dy.dtype}: want "
+                         f"{(b, s, h, p)} {x.dtype}")
+    if dstate is not None and (tuple(dstate.shape) != (b, h, n, p)
+                               or dstate.dtype != torch.float32):
+        raise ValueError(f"dstate {tuple(dstate.shape)} {dstate.dtype}: want "
+                         f"{(b, h, n, p)} float32")
+    for name, t in (("dy", dy), ("dstate", dstate)):
+        if t is not None and not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
+def bwd_heads(h: int, g: int) -> int:
+    """Heads of one group per keys / queries block of the backward."""
+    return min(BWD_HEADS, h // g)
+
+
+def bwd_buffers(x, B, q: int):
+    """(dx, ddt, dA, dB, dC, dinit) and the scratch of one backward call:
+    the states entering and the gradients leaving each chunk (b, nc, h, n,
+    p), <S_out, dS> (b, nc, h), each row's d cum share (b, s, h) and the
+    head tiles' dB and dC partials (b, s, g x tiles, n), all fp32, with
+    ``torch.empty`` on x's device."""
+    b, s, h, p = x.shape
+    g, n = B.shape[2], B.shape[3]
+    nc = s // q
+    tiles = g * -(-(h // g) // bwd_heads(h, g))
+    dev, f32 = x.device, torch.float32
+    return (torch.empty((b, s, h, p), dtype=x.dtype, device=dev),
+            torch.empty((b, s, h), dtype=f32, device=dev),
+            torch.empty((h,), dtype=f32, device=dev),
+            torch.empty((b, s, g, n), dtype=B.dtype, device=dev),
+            torch.empty((b, s, g, n), dtype=B.dtype, device=dev),
+            torch.empty((b, h, n, p), dtype=f32, device=dev),
+            torch.empty((b, nc, h, n, p), dtype=f32, device=dev),
+            torch.empty((b, nc, h, n, p), dtype=f32, device=dev),
+            torch.empty((b, nc, h), dtype=f32, device=dev),
+            torch.empty((b, s, h), dtype=f32, device=dev),
+            torch.empty((b, s, tiles, n), dtype=f32, device=dev),
+            torch.empty((b, s, tiles, n), dtype=f32, device=dev))
+
+
+def launch_bwd(x, dt, A, B, C, dy, q: int, init, dstate, buffers,
+               stages: int = BWD_ALL_STAGES) -> None:
+    """Launch the backward kernels named by ``stages`` (bits of
+    ``BWD_STAGES``) on ``buffers`` (``bwd_buffers``); all four are
+    ``ssd_chunk_scan_bwd``.  Counts nothing."""
+    b, s, h, p = x.shape
+    g, n = B.shape[2], B.shape[3]
+    err = _bwd_entry(x.dtype)(
+        x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
+        C.data_ptr(), None if init is None else init.data_ptr(),
+        dy.data_ptr(), None if dstate is None else dstate.data_ptr(),
+        *(t.data_ptr() for t in buffers), b, s, h, p, g, n, q,
+        bwd_plan(q, n, p), bwd_heads(h, g), *_strides(x, B, C), stages,
+        torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(err, "ssd_chunk_scan_bwd")
+
+
+def ssd_chunk_scan_bwd(x, dt, A, B, C, dy, *, chunk: int = 256, init=None,
+                       dstate=None):
+    """(dx, ddt, dA, dB, dC, dinit) of ``ssd_chunk_scan`` at (x, dt, A, B,
+    C, init) for the output gradient ``dy`` (x's dtype and shape) and the
+    final state's ``dstate`` (b, h, n, p) fp32, or None (zeros).  dx, dB
+    and dC come in x's dtype, the rest fp32; dB and dC sum over each
+    group's heads.  CPU tensors take ``ssd_bwd_ref``."""
+    q = _check_shapes(x, dt, A, B, C, chunk, init)
+    _check_dy(x, dy, dstate, B.shape[3])
+    if x.device.type == "cpu":
+        dx, ddt, dA, dB, dC, dinit = ssd_bwd_ref(x, dt, A, B, C, init, dy,
+                                                 dstate, chunk=q)
+        return dx.to(x.dtype), ddt, dA, dB.to(B.dtype), dC.to(C.dtype), dinit
+    check_operands(x, dt, A, B, C, init)
+    return torch.ops.repro_torch.ssd_chunk_scan_bwd(x, dt, A, B, C, dy, q,
+                                                    init, dstate)
+
+
+ssd_chunk_scan_bwd.launches = 0
+
+
+def _bwd_op(x, dt, A, B, C, dy, q, init, dstate):
+    """``repro_torch::ssd_chunk_scan_bwd``: one backward call (four
+    kernels) -> (dx, ddt, dA, dB, dC, dinit)."""
+    _check_device(x, dt, A, B, C, init)
+    for name, t in (("dy", dy), ("dstate", dstate)):
+        if t is not None and t.device != x.device:
+            raise ValueError(f"{name} is not on {x.device}")
+    buffers = bwd_buffers(x, B, q)
+    ssd_chunk_scan_bwd.launches += 1
+    launch_bwd(x, dt, A, B, C, dy, q, init, dstate, buffers)
+    return buffers[:6]
+
+
+_lib.define("ssd_chunk_scan_bwd(Tensor x, Tensor dt, Tensor A, Tensor B, "
+            "Tensor C, Tensor dy, int chunk, Tensor? init, Tensor? dstate) "
+            "-> (Tensor, Tensor, Tensor, Tensor, Tensor, Tensor)")
+_lib.impl("ssd_chunk_scan_bwd", _bwd_op, "CompositeExplicitAutograd")
+
+
+class SSDChunkScanFn(torch.autograd.Function):
+    """The SSD chunk scan with its gradient, off the CPU only: both
+    directions are the hand-written kernels (the forward's op, then
+    ``ssd_chunk_scan_bwd``).  On the CPU, autograd through the chunked
+    plain path of ``models/ssm.py`` is the gradient."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, B, C, q, init):
+        y, state = torch.ops.repro_torch.ssd_chunk_scan(x, dt, A, B, C, q,
+                                                        init)
+        ctx.save_for_backward(x, dt, A, B, C, init)
+        ctx.q = q
+        ctx.set_materialize_grads(False)
+        return y, state
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, dy, dstate):
+        x, dt, A, B, C, init = ctx.saved_tensors
+        dy = x.new_zeros(x.shape) if dy is None else dy.contiguous()
+        if dstate is not None:
+            dstate = dstate.contiguous()
+        dx, ddt, dA, dB, dC, dinit = torch.ops.repro_torch.ssd_chunk_scan_bwd(
+            x, dt, A, B, C, dy, ctx.q, init, dstate)
+        return dx, ddt, dA, dB, dC, None, None if init is None else dinit

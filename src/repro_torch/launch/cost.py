@@ -95,6 +95,27 @@ def ssd_work(b, s, h, p, g, n, chunk, itemsize=2, init=False) -> tuple:
     return flops, nbytes
 
 
+def ssd_bwd_work(b, s, h, p, g, n, chunk, itemsize=2, init=False,
+                 dstate=False) -> tuple:
+    """(FLOPs, bytes) of one SSD chunk-scan backward.  FLOPs: per head and
+    chunk, over the q(q+1)/2 (query, key) pairs of the causal chunk, dy x'^T,
+    the dx' and dB and dC products (2 q(q+1) (p + p + n + n)), and the five
+    n x p products over the chunk's rows (the states entering it, the state
+    gradient of its outputs, and the state terms of dx', dB and dC: 10 q n
+    p); per group C B^T over the pairs (q(q+1) n).  Bytes: x, dy and dx, B,
+    C, dB and dC in ``itemsize``, dt and ddt, A and dA fp32 (and init,
+    dstate, dinit if given), each moved once."""
+    q = min(chunk, s)
+    nc = s // q
+    pairs = q * (q + 1) / 2
+    flops = (2.0 * pairs * (2 * p + 2 * n) + 10.0 * q * n * p) * b * h * nc \
+        + 2.0 * pairs * n * b * g * nc
+    state = 4 * b * h * n * p
+    nbytes = 3 * b * s * h * p * itemsize + 4 * b * s * g * n * itemsize \
+        + 2 * 4 * b * s * h + 2 * 4 * h + state * (2 * int(init) + int(dstate))
+    return flops, nbytes
+
+
 def _flash(q, k, v, causal, window, softcap, with_lse):
     b, sq, h, dh = q.shape
     lse = q.new_empty((b, h, sq) if with_lse else (0,), dtype=torch.float32)
@@ -129,10 +150,22 @@ def _ssd(x, dt, A, B, C, chunk, init):
                      init is not None))
 
 
+def _ssd_bwd(x, dt, A, B, C, dy, chunk, init, dstate):
+    b, s, h, p = x.shape
+    g, n = B.shape[2], B.shape[3]
+    f32 = torch.float32
+    return ((torch.empty_like(x), dt.new_empty((b, s, h), dtype=f32),
+             A.new_empty((h,), dtype=f32), torch.empty_like(B),
+             torch.empty_like(C), x.new_empty((b, h, n, p), dtype=f32)),
+            ssd_bwd_work(b, s, h, p, g, n, chunk, x.element_size(),
+                         init is not None, dstate is not None))
+
+
 # operator name in ``torch.ops.repro_torch`` -> its arguments -> (outputs,
 # (FLOPs, bytes))
 KERNELS = {"flash_attention": _flash, "flash_attention_bwd": _flash_bwd,
-           "decode_attention": _decode, "ssd_chunk_scan": _ssd}
+           "decode_attention": _decode, "ssd_chunk_scan": _ssd,
+           "ssd_chunk_scan_bwd": _ssd_bwd}
 
 
 # ------------------------------------------------------------- the counter

@@ -37,11 +37,12 @@ written in ring order (slot = position % cache size), which matches the
 reference whenever the prompt fits the cache.
 
 SSM blocks (``models/ssm.py``): on the card the SSD chunk scan of prefill /
-train goes through the CUDA SSD kernel, on the CPU through the chunked
-plain path; the single-token decode step is plain PyTorch on both.  Their
-cache is the conv tail and the fp32 state, written in place.  The SSD
-kernels have no backward yet (ROADMAP B6): a grad-enabled train pass of
-SSM blocks raises on the card and runs the chunked plain path on the CPU.
+train goes through the CUDA SSD kernels (with a gradient,
+``SSDChunkScanFn``: the hand-written backward kernels), on the CPU through
+the chunked plain path with torch autograd; the single-token decode step
+is plain PyTorch on both.  Their cache is the conv tail and the fp32
+state, written in place.  With remat a train step launches the SSD
+forward twice a layer and its backward once.
 
 Sharding: ``Model(cfg, sharder)`` with a ``parallel.Sharder`` on a mesh
 takes params (and caches, which it allocates) as DTensors and constrains
@@ -582,11 +583,6 @@ class Model:
         no logits are formed.
         Reference: ``repro/models/model.py::Model.forward_hidden``."""
         cfg = self.cfg
-        if tokens.device.type == "cuda" and torch.is_grad_enabled() and \
-                any(spec.kind != "attn" for spec in cfg.cycle):
-            raise NotImplementedError(
-                f"{cfg.name}: training SSM blocks on the card needs the SSD "
-                f"backward kernel (ROADMAP B6)")
         with self.sh.region():
             enc_out = self.encode(params, enc_embeds) if self.cfg.encoder \
                 else None

@@ -9,10 +9,14 @@ Dispatch: ``ssd_scan`` pads the sequence to a multiple of Q and then, on
 the card, runs the chunk scan through the CUDA kernels
 (``kernels.ssd.ops.ssd_chunk_scan``: for bf16 three launches per call,
 chunk states, a pass over the chunks and the chunk scan, on the tensor
-cores; for fp32 one CUDA-core kernel); on the CPU it runs the chunked plain
-path (``_ssd_chunked``), a port of the reference's XLA path.  Both start
-from ``ssm_state`` when one is given (the reference's ``ssd_forward``
-does), else from zeros.  ``ssd_decode`` is plain PyTorch on both devices.
+cores; for fp32 one CUDA-core kernel), with a gradient through
+``SSDChunkScanFn``, whose backward is the hand-written kernels of
+``csrc/ssd_bwd.cu`` (four launches per call); on ``meta`` (the dry run)
+the same operators, which ``launch.cost`` counts; on the CPU it runs the
+chunked plain path (``_ssd_chunked``), a port of the reference's XLA path,
+with torch autograd.  Both start from ``ssm_state`` when one is given (the
+reference's ``ssd_forward`` does), else from zeros.  ``ssd_decode`` is
+plain PyTorch on both devices.
 
 Two deliberate differences from the reference:
 * The kernel returns y in x's dtype, so in a bf16 model the card rounds y
@@ -139,12 +143,15 @@ def _ssd_chunked(xh, dt, A, B, C, Q: int, init=None):
     cum = torch.cumsum(dt_c * A.to(f32), dim=2)                 # (b,nc,Q,h)
     total = cum[:, :, -1:, :]
 
-    # intra-chunk: decay L[q,k] = exp(cum_q - cum_k) for k <= q, else 0
+    # intra-chunk: decay L[q,k] = exp(cum_q - cum_k) for k <= q, else 0; the
+    # mask goes on the exponent, so that exp never sees the (positive) sums
+    # above the diagonal: past 88 their exp is inf, and its gradient, 0 x
+    # inf, would be NaN
     cb = torch.einsum("bcqgn,bckgn->bcgqk", C_c, B_c)           # (b,nc,g,Q,Q)
     diff = cum[:, :, :, None, :] - cum[:, :, None, :, :]        # (b,nc,Q,Q,h)
     ltri = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=xh.device))
-    Lmat = torch.where(ltri[None, None, :, :, None], torch.exp(diff),
-                       torch.zeros((), dtype=f32, device=xh.device))
+    Lmat = torch.exp(torch.where(ltri[None, None, :, :, None], diff,
+                                 float("-inf")))
     xdt = xh_c * dt_c[..., None]                                # (b,nc,Q,h,p)
     scores = torch.repeat_interleave(cb, hpg, dim=2)            # (b,nc,h,Q,Q)
     y_intra = torch.einsum("bchqk,bckhp->bcqhp",
@@ -170,14 +177,14 @@ def ssd_scan(xh, dt, A, B, C, chunk: int, ssm_state=None, sh=None):
     """Pad the sequence to a multiple of Q = min(chunk, s) and run the chunk
     scan from ``ssm_state`` (or zeros) on each rank's heads
     (``Sharder.local_call``; B and C are shared by the heads of a group):
-    the CUDA kernels on the card, and on ``meta`` (the dry run) their
-    operator unless a gradient is needed, since the kernels have none
-    (ROADMAP B6); ``_ssd_chunked`` otherwise (so the dry run counts an SSM
-    train step's scan as the chunked path's work).
+    the CUDA kernels on the card and their operators on ``meta`` (the dry
+    run), with a gradient through ``SSDChunkScanFn`` (the forward and
+    backward kernels); ``_ssd_chunked`` with torch autograd on the CPU.
 
     Returns (y (b,s,h,p): xh's dtype from the kernels, fp32 from the
-    chunked path; final state (b,h,n,p) fp32).  Padded rows carry dt = 0,
-    so they leave the state as it was."""
+    chunked path; final state (b,h,n,p) fp32).  Padded rows carry dt = 0
+    and x = B = C = 0, so they leave the state as it was and their
+    gradients (sliced off by the pad's backward) are zero."""
     b, seqlen, h, p = xh.shape
     Q = min(chunk, seqlen)
 
@@ -186,10 +193,7 @@ def ssd_scan(xh, dt, A, B, C, chunk: int, ssm_state=None, sh=None):
         if pad:
             xh, B, C = (F.pad(t, (0, 0, 0, 0, 0, pad)) for t in (xh, B, C))
             dt = F.pad(dt, (0, 0, 0, pad))
-        dev = xh.device.type
-        if dev == "cuda" or dev == "meta" and not (
-                torch.is_grad_enabled() and any(
-                    t.requires_grad for t in (xh, dt, A, B, C))):
+        if xh.device.type in ("cuda", "meta"):
             init = None if init is None else init.float().contiguous()
             y, state = ssd_chunk_scan(xh, dt, A, B, C, chunk=Q, init=init)
         else:

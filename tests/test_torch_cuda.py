@@ -9,8 +9,11 @@ Shapes are the Pallas sweep of ``tests/test_kernels.py`` plus ragged
 lengths and empty sequences; tolerances fp32 3e-5, bf16 2e-2 (SSD: fp32
 5e-4, as the reference's SSD test; bf16 x/B/C 2e-2).  The flash-attention
 backward kernel is held against autograd through the plain forward
-(``attention_bwd_ref``) at the same tolerances; the train step on the card
-against the CPU's at 2e-3 (see ``test_full_width_train_step_card_vs_cpu``).
+(``attention_bwd_ref``) at the same tolerances; the SSD backward kernels
+against ``ssd_bwd_ref`` at the SSD tolerances (ddt and dA also within
+2e-5 of their largest entry); the train steps on the card against the
+CPU's at 2e-3 (see ``test_full_width_train_step_card_vs_cpu`` and
+``test_mamba2_train_step_card_vs_cpu``).
 """
 
 import pytest
@@ -26,7 +29,7 @@ from repro_torch.kernels.flash_attention import ops as flash_ops  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import (  # noqa: E402
     attention_bwd_ref, attention_lse_ref, attention_ref)
 from repro_torch.kernels.ssd import ops as ssd_ops  # noqa: E402
-from repro_torch.kernels.ssd.ref import ssd_ref  # noqa: E402
+from repro_torch.kernels.ssd.ref import ssd_bwd_ref, ssd_ref  # noqa: E402
 
 torch.set_num_threads(2)
 
@@ -679,7 +682,7 @@ def test_flash_attention_fn_through_autograd_on_card(cuda):
 
 
 @pytest.mark.cuda
-def test_decode_and_ssd_kernels_refuse_grad_on_card(cuda):
+def test_decode_kernel_refuses_grad_on_card(cuda):
     q = torch.randn(2, 4, 64, device=cuda, requires_grad=True)
     k = torch.randn(2, 32, 2, 64, device=cuda)
     lengths = torch.full((2,), 16, dtype=torch.int32, device=cuda)
@@ -687,11 +690,173 @@ def test_decode_and_ssd_kernels_refuse_grad_on_card(cuda):
         decode_ops.decode_attention(q, k, k, lengths)
     with torch.no_grad():
         decode_ops.decode_attention(q, k, k, lengths)
-    x, dt, A, B, C = _ssd_inputs(cuda, 1, 64, 2, 16, 1, 16, "float32")
-    with pytest.raises(RuntimeError, match="ROADMAP B6"):
-        ssd_ops.ssd_chunk_scan(x.requires_grad_(True), dt, A, B, C, chunk=32)
+
+
+# (b, s, h, p, g, n, chunk): mamba2-2.7b's train shape, g > 1, jamba's
+# widths, the Pallas sweep, a chunk not a multiple of the 64-row tile
+SSD_BWD_SHAPES = [
+    (4, 2048, 80, 64, 1, 128, 256),
+    (2, 512, 6, 64, 3, 64, 128),
+    (1, 128, 4, 1, 1, 16, 16),
+    (2, 128, 4, 16, 1, 32, 32),
+    (1, 256, 8, 32, 2, 16, 64),
+    (2, 192, 6, 8, 3, 8, 64),
+    (1, 300, 4, 64, 1, 128, 100),
+]
+BWD_NAMES = ("dx", "ddt", "dA", "dB", "dC", "dinit")
+# ddt and dA besides within this much of their largest entry: the chunked
+# decay gradient sums each row's fp32 rounding of C . dC - x' . dx' into
+# every earlier row of the chunk, then over the rows
+# (tests/test_torch_ssd_bwd.py)
+SSD_BWD_SCALE_TOL = 2e-5
+
+
+def _ssd_bwd_close(got, want, tol) -> None:
+    """dx, dB, dC, dinit within ``tol`` (abs + rel); ddt and dA within it
+    plus SSD_BWD_SCALE_TOL of their largest entry."""
+    for name, g, w in zip(BWD_NAMES, got, want):
+        scale = SSD_BWD_SCALE_TOL * float(w.abs().max()) \
+            if name in ("ddt", "dA") else 0.0
+        assert torch.isfinite(g.float()).all(), name
+        torch.testing.assert_close(g.float(), w, atol=tol + scale, rtol=tol,
+                                   msg=lambda m, name=name: f"{name}: {m}")
+
+
+def _ssd_bwd_inputs(cuda, shape, dtype, seed=18, with_state=False):
+    b, s, h, p, g, n, _ = shape
+    x, dt, A, B, C = _ssd_inputs(cuda, b, s, h, p, g, n, dtype, seed=seed)
+    rng = np.random.default_rng(seed + 1)
+    dy = torch.from_numpy(rng.standard_normal((b, s, h, p), np.float32)).to(
+        cuda, x.dtype)
+    init = dstate = None
+    if with_state:
+        init, dstate = (torch.from_numpy(rng.standard_normal(
+            (b, h, n, p), np.float32)).to(cuda) for _ in "ab")
+    return x, dt, A, B, C, init, dy, dstate
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_state", (False, True))
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", SSD_BWD_SHAPES)
+def test_ssd_bwd_kernel_vs_plain_on_card(cuda, shape, dtype, with_state):
+    """The backward op (four kernels) against ``ssd_bwd_ref`` on the same
+    inputs, with and without an initial state and a final-state gradient,
+    at the SSD tolerance (fp32 5e-4, bf16 2e-2)."""
+    x, dt, A, B, C, init, dy, dstate = _ssd_bwd_inputs(cuda, shape, dtype,
+                                                       with_state=with_state)
+    before = ssd_ops.ssd_chunk_scan_bwd.launches
+    got = ssd_ops.ssd_chunk_scan_bwd(x, dt, A, B, C, dy, chunk=shape[6],
+                                     init=init, dstate=dstate)
+    torch.cuda.synchronize()
+    assert ssd_ops.ssd_chunk_scan_bwd.launches == before + 1
+    assert [t.dtype for t in got] == [x.dtype, torch.float32, torch.float32,
+                                      B.dtype, C.dtype, torch.float32]
+    want = ssd_bwd_ref(x, dt, A, B, C, init, dy, dstate, chunk=shape[6])
+    _ssd_bwd_close(got, want, SSD_TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", [(2, 128, 4, 16, 1, 32, 32),
+                                   (1, 300, 6, 64, 3, 64, 100)])
+def test_ssd_bwd_stages_vs_plain_stages_on_card(cuda, shape, dtype):
+    """Each kernel's scratch against its plain stage: the states entering
+    and the gradients leaving each chunk, <S_out, dS> and dinit (states);
+    dx and x . dx' (keys); each row's d cum (queries)."""
+    from repro_torch.kernels.ssd import ref as R
+
+    x, dt, A, B, C, init, dy, dstate = _ssd_bwd_inputs(cuda, shape, dtype,
+                                                       with_state=True)
+    q = shape[6]
+    buffers = ssd_ops.bwd_buffers(x, B, q)
+    st = R.bwd_chunk_states(x, dt, A, B, C, dy, q)
+    prev, grads, dinit, delta = R.bwd_state_pass(*st, init, dstate)
+    dx, _, _, direct, dcum = R.bwd_chunk_grads(x, dt, A, B, C, dy, q, prev,
+                                               grads)
+    tol = SSD_TOL[dtype]
+    ssd_ops.launch_bwd(x, dt, A, B, C, dy, q, init, dstate, buffers,
+                       ssd_ops.BWD_STAGES["states"])
+    torch.cuda.synchronize()
+    for got, want in ((buffers[6], prev), (buffers[7], grads),
+                      (buffers[8], delta), (buffers[5], dinit)):
+        torch.testing.assert_close(got, want, atol=tol, rtol=tol)
+    ssd_ops.launch_bwd(x, dt, A, B, C, dy, q, init, dstate, buffers,
+                       ssd_ops.BWD_STAGES["keys"])
+    torch.cuda.synchronize()
+    torch.testing.assert_close(buffers[0].float(), dx, atol=tol, rtol=tol)
+    torch.testing.assert_close(buffers[1], direct, atol=tol, rtol=tol)
+    ssd_ops.launch_bwd(x, dt, A, B, C, dy, q, init, dstate, buffers,
+                       ssd_ops.BWD_STAGES["queries"])
+    torch.cuda.synchronize()
+    torch.testing.assert_close(buffers[9], dcum, atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+def test_ssd_bwd_is_deterministic_on_card(cuda):
+    """No float atomics: two calls give the same bits."""
+    shape = (2, 512, 40, 64, 1, 128, 256)
+    x, dt, A, B, C, _, dy, _ = _ssd_bwd_inputs(cuda, shape, "bfloat16")
+    first = ssd_ops.ssd_chunk_scan_bwd(x, dt, A, B, C, dy, chunk=256)
+    second = ssd_ops.ssd_chunk_scan_bwd(x, dt, A, B, C, dy, chunk=256)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s", (512, 300))
+def test_ssd_scan_gradients_on_card_go_through_the_kernels(cuda, monkeypatch,
+                                                           s):
+    """``ssd_scan`` on strided slices of one conv output, with a gradient:
+    one forward and one backward launch (the plain versions are made to
+    raise), and the gradients of the conv output, dt and A equal the
+    backward op's on the same (padded) inputs."""
+    from repro_torch.kernels.ssd import ref as R
+    from repro_torch.models import ssm as S
+
+    def refuse(*a, **k):
+        raise AssertionError("a plain path ran on the card")
+
+    for mod, name in ((R, "ssd_ref"), (R, "ssd_bwd_ref"),
+                      (S, "_ssd_chunked")):
+        monkeypatch.setattr(mod, name, refuse)
+    b, h, p, g, n, q = 2, 8, 64, 1, 128, 256
+    rng = np.random.default_rng(19)
+    conv = torch.from_numpy(rng.standard_normal(
+        (b, s, h * p + 2 * g * n), np.float32)).to(cuda, torch.bfloat16)
+    conv.requires_grad_(True)
+    dt = torch.rand((b, s, h), device=cuda, requires_grad=True)
+    A = (-torch.rand((h,), device=cuda) - 0.5).requires_grad_(True)
+    x = conv[..., :h * p].view(b, s, h, p)
+    B = conv[..., h * p:h * p + g * n].view(b, s, g, n)
+    C = conv[..., h * p + g * n:].view(b, s, g, n)
+    f0 = ssd_ops.ssd_chunk_scan.launches
+    b0 = ssd_ops.ssd_chunk_scan_bwd.launches
+    y, state = S.ssd_scan(x, dt, A, B, C, q)
+    dy = torch.randn_like(y)
+    grads = torch.autograd.grad((y.float() * dy.float()).sum(),
+                                (conv, dt, A))
+    torch.cuda.synchronize()
+    assert ssd_ops.ssd_chunk_scan.launches == f0 + 1
+    assert ssd_ops.ssd_chunk_scan_bwd.launches == b0 + 1
+    pad = (-s) % q
+
+    def grow(t):
+        return torch.cat([t, t.new_zeros((b, pad, *t.shape[2:]))], 1)
+
     with torch.no_grad():
-        ssd_ops.ssd_chunk_scan(x, dt, A, B, C, chunk=32)
+        want = ssd_ops.ssd_chunk_scan_bwd(
+            grow(x).contiguous(), grow(dt), A, grow(B).contiguous(),
+            grow(C).contiguous(), grow(dy).contiguous(), chunk=q)
+    assert torch.equal(grads[0][..., :h * p],
+                       want[0][:, :s].reshape(b, s, h * p))
+    assert torch.equal(grads[0][..., h * p:h * p + g * n],
+                       want[3][:, :s].reshape(b, s, g * n))
+    assert torch.equal(grads[0][..., h * p + g * n:],
+                       want[4][:, :s].reshape(b, s, g * n))
+    assert torch.equal(grads[1], want[1][:, :s])
+    assert torch.equal(grads[2], want[2])
+    assert torch.count_nonzero(want[0][:, s:]) == 0
 
 
 def _narrow_yi(dtype="bfloat16", layers=2, remat="none"):
@@ -744,23 +909,78 @@ def test_train_step_on_card_never_takes_a_plain_path(cuda, monkeypatch, remat):
 
 
 @pytest.mark.cuda
-def test_ssm_training_raises_on_card(cuda):
+def test_mamba2_train_step_card_vs_cpu(cuda):
+    """mamba2's smoke config at 2 layers, fp32, b 2 x s 40 (the pad path:
+    chunk 16): the loss and every gradient of the train loss on the card
+    (the SSD forward kernel twice a layer with remat, its backward once)
+    against the plain CPU path (torch autograd through the chunked scan).
+    The loss within 2e-3; each gradient within 2e-3 of its largest CPU
+    entry, as chip_smoke phase 4."""
     from dataclasses import replace
+
+    from repro_torch.checkpoint import leaf_paths
+    from repro_torch.configs import smoke_config
+    from repro_torch.models.model import Model
+    from repro_torch.models.param import init_params, tree_leaves, tree_map
+    from repro_torch.train import make_loss_fn
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = replace(smoke_config("mamba2-2.7b"), dtype="float32", remat="block")
+    p_cpu = init_params(Model(cfg, device="cpu").param_template(),
+                        torch.Generator().manual_seed(0), device="cpu")
+    toks = torch.from_numpy(np.random.default_rng(24).integers(
+        0, cfg.vocab_size, (2, 41)))
+    out = []
+    f0 = ssd_ops.ssd_chunk_scan.launches
+    b0 = ssd_ops.ssd_chunk_scan_bwd.launches
+    for model in (Model(cfg), Model(cfg, device="cpu")):
+        dev = model.device
+        live = tree_map(lambda t: t.to(dev).requires_grad_(True), p_cpu)
+        loss, _ = make_loss_fn(model, ce_chunk=16)(
+            live, {"inputs": toks[:, :-1].to(dev),
+                   "targets": toks[:, 1:].to(dev)})
+        grads = torch.autograd.grad(loss, tree_leaves(live))
+        out.append((float(loss.detach()), [g.cpu() for g in grads]))
+    assert ssd_ops.ssd_chunk_scan.launches == f0 + 2 * cfg.n_layers
+    assert ssd_ops.ssd_chunk_scan_bwd.launches == b0 + cfg.n_layers
+    assert abs(out[0][0] - out[1][0]) <= 2e-3
+    names = [n for n, _ in leaf_paths(p_cpu)]
+    for name, card, cpu in zip(names, out[0][1], out[1][1]):
+        err = float((card - cpu).abs().max())
+        assert err <= 2e-3 * min(1.0, float(cpu.abs().max())), (name, err)
+
+
+@pytest.mark.cuda
+def test_decode_over_a_split_ring_raises_on_card(cuda):
+    """ROADMAP C-m: ``Model._decode_attention`` refuses, on the card, a
+    cache whose sequence is split over more than one rank (the decode
+    kernel returns no softmax statistics to merge).  A fake process group
+    of two ranks (this process rank 0, as the dry run's) lets one card
+    hold such a DTensor; the refusal comes before any collective."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import DTensor, Shard
+    from torch.testing._internal.distributed.fake_pg import FakeStore
 
     from repro_torch.configs import smoke_config
     from repro_torch.models.model import Model
-    from repro_torch.models.param import init_params
-    from repro_torch.train import make_loss_fn
 
-    model = Model(replace(smoke_config("mamba2-2.7b"), dtype="float32"))
-    params = init_params(model.param_template(),
-                         torch.Generator(device=cuda).manual_seed(0))
-    tok = torch.zeros((1, 32), dtype=torch.int64, device=cuda)
-    live = {k: v for k, v in params.items()}
-    live["embed"] = params["embed"].requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="ROADMAP B6"):
-        make_loss_fn(model, ce_chunk=16)(live, {"inputs": tok,
-                                                "targets": tok})
+    assert not dist.is_initialized()
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=2)
+    try:
+        mesh = init_device_mesh("cuda", (2,), mesh_dim_names=("seq",))
+        model = Model(smoke_config("yi-9b"))
+        kv, dh = model.cfg.n_kv_heads, model.cfg.head_dim
+        q = torch.randn(2, 1, model.cfg.n_heads, dh, device=cuda)
+        local = torch.randn(2, 16, kv, dh, device=cuda)
+        kc = DTensor.from_local(local, mesh, [Shard(1)], run_check=False)
+        lengths = torch.full((2,), 20, dtype=torch.int32, device=cuda)
+        kpos = torch.arange(32, device=cuda)
+        pos = torch.full((2,), 19, device=cuda)
+        with pytest.raises(NotImplementedError, match="split over ranks"):
+            model._decode_attention(q, kc, kc, kpos, pos, lengths)
+    finally:
+        dist.destroy_process_group()
 
 
 @pytest.mark.cuda

@@ -310,15 +310,26 @@ def test_decode_kernel_wrapper_refuses_inputs_that_need_grad():
 
 
 def test_ssd_kernel_wrapper_refuses_inputs_that_need_grad():
+    """Since the SSD backward kernels the wrapper refuses no gradient: a
+    grad-enabled call off the CPU (a meta tensor stands in for a CUDA one)
+    dispatches to ``SSDChunkScanFn`` (the cost counter stands in for the
+    launches), under no_grad straight to the operator; without the counter
+    the operator's one implementation refuses any device but CUDA."""
+    from repro_torch.launch.cost import CostCounter
+
     b, s, h, p, g, n = 1, 64, 2, 16, 1, 16
     x = _meta(b, s, h, p)
     dt, A = _meta(b, s, h, grad=False), _meta(h, grad=False)
     B, C = _meta(b, s, g, n, grad=False), _meta(b, s, g, n, grad=False)
-    with pytest.raises(RuntimeError, match="ROADMAP B6"):
-        ssd_ops.ssd_chunk_scan(x, dt, A, B, C, chunk=32)
-    x = x.detach()
-    with pytest.raises(RuntimeError, match="ROADMAP B6"):
-        ssd_ops.ssd_chunk_scan(x, dt, A, B, C.requires_grad_(True), chunk=32)
+    with CostCounter():
+        y, state = ssd_ops.ssd_chunk_scan(x, dt, A, B, C, chunk=32)
+        assert type(y.grad_fn).__name__ == "SSDChunkScanFnBackward"
+        with torch.no_grad():
+            y, _ = ssd_ops.ssd_chunk_scan(x, dt, A, B, C, chunk=32)
+        assert y.grad_fn is None
+    with pytest.raises(ValueError, match="not on"):
+        ssd_ops.ssd_chunk_scan(x.detach(), dt, A, B, C.requires_grad_(True),
+                               chunk=32)
 
 
 # ------------------------------------------------------------ train step
