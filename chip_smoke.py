@@ -115,8 +115,9 @@ Phase 3 also holds the flash-attention backward kernel against its plain
 version (autograd through the forward's) and times it at the training
 shape, whole and each of its three kernels alone, and the SSD backward
 kernels against theirs (ssd_bwd_ref) at mamba2's train shape, g 3,
-jamba's widths and from a state with a final-state gradient, both dtypes,
-timed at the train shape whole and each of its four kernels alone; phase
+jamba's widths and from a state with a final-state gradient, both dtypes
+(two calls bit-equal at the train shape in each), timed at the train shape
+whole and each of its five bf16 kernels alone; phase
 4 also holds every gradient of a 2-layer fp32 train step of yi-9b,
 stablelm-3b and mamba2-2.7b (prompt 300: the pad path) on the card against
 the CPU's at 2e-3.
@@ -870,14 +871,19 @@ def ssd_at(gen, shape) -> dict:
 
 
 # (b, s, h, p, g, n, chunk) of phase 3's SSD backward checks: mamba2-2.7b's
-# train shape (phase 15's), g > 1, jamba's widths; the second also from an
-# initial state with a final-state gradient
+# train shape (phase 15's), g > 1, jamba's widths over 4 heads and at full
+# width over phase 11's b x s (8,192 heads: the bf16 M2 scratch in slices);
+# the second also from an initial state with a final-state gradient
 _M2 = get_config("mamba2-2.7b").ssm
+_JAMBA = get_config("jamba-v0.1-52b").ssm
 SSD_BWD_SHAPES = [((TRAIN_B, TRAIN_S, _M2.n_heads, _M2.head_dim, _M2.n_groups,
                     _M2.d_state, _M2.chunk), False),
                   ((2, 512, 6, 64, 3, 64, 128), False),
                   ((1, 128, 4, 1, 1, 16, 16), False),
-                  ((2, 512, 6, 64, 3, 64, 128), True)]
+                  ((2, 512, 6, 64, 3, 64, 128), True),
+                  ((SERVE_B, max(SERVE_PROMPTS), _JAMBA.n_heads,
+                    _JAMBA.head_dim, _JAMBA.n_groups, _JAMBA.d_state,
+                    _JAMBA.chunk), False)]
 # ddt and dA besides within this much of their largest entry: the chunked
 # decay gradient carries each row's fp32 rounding of C . dC - x' . dx' to
 # the earlier rows of its chunk (kernels/ssd/ref.py)
@@ -904,26 +910,32 @@ def _ssd_bwd_stage_errors(args, q: int) -> dict:
     dinit; dx and x . dx'; each row's d cum."""
     from repro_torch.kernels.ssd import ref as R
     x, dt, A, B, C, init, dy, dstate = args
+    h, p, n = x.shape[2], x.shape[3], B.shape[3]
     buffers = ssd_ops.bwd_buffers(x, B, q)
     st = R.bwd_chunk_states(x, dt, A, B, C, dy, q)
     prev, grads, dinit, delta = R.bwd_state_pass(*st, init, dstate)
     dx, _, _, direct, dcum = R.bwd_chunk_grads(x, dt, A, B, C, dy, q, prev,
                                                grads)
+    stages = ssd_ops.BWD_STAGES[x.dtype]
     ssd_ops.launch_bwd(x, dt, A, B, C, dy, q, init, dstate, buffers,
-                       ssd_ops.BWD_STAGES["states"]
-                       | ssd_ops.BWD_STAGES["keys"]
-                       | ssd_ops.BWD_STAGES["queries"])
+                       sum(bit for name, bit in stages.items()
+                           if name != "finish"))
     torch.cuda.synchronize()
-    return {"prev": max_err(buffers[6], prev),
-            "grads": max_err(buffers[7], grads),
-            "delta": max_err(buffers[8], delta),
-            "dinit": max_err(buffers[5], dinit), "dx": max_err(buffers[0], dx),
-            "ddt_direct": max_err(buffers[1], direct),
-            "dcum": max_err(buffers[9], dcum)}
+    got_prev, got_grads = buffers.prev, buffers.grads
+    if x.dtype == torch.bfloat16:
+        got_prev, got_grads = (ssd_ops.unpack_states(t, h, n, p)
+                               for t in (got_prev, got_grads))
+    return {"prev": max_err(got_prev, prev),
+            "grads": max_err(got_grads, grads),
+            "delta": max_err(buffers.delta, delta),
+            "dinit": max_err(buffers.dinit, dinit),
+            "dx": max_err(buffers.dx, dx),
+            "ddt_direct": max_err(buffers.ddt, direct),
+            "dcum": max_err(ssd_ops.bwd_row_dcum(buffers, q), dcum)}
 
 
 def _ssd_bwd_check(gen, shape, dtype, with_state: bool) -> tuple:
-    """One backward call (four kernels) against ``ssd_bwd_ref`` on the same
+    """One backward call (all its kernels) against ``ssd_bwd_ref`` on the same
     inputs: dx, dB, dC, dinit within SSD_TOL (abs + rel), ddt and dA within
     it plus SSD_BWD_SCALE_TOL of their largest entry.  On a miss each
     kernel's stage is compared too.  Returns the inputs and the largest
@@ -957,42 +969,67 @@ def _ssd_bwd_check(gen, shape, dtype, with_state: bool) -> tuple:
 
 
 def ssd_bwd_kernel_times(args, q: int) -> dict:
-    """Device ms of each of the backward's kernels alone, and of all four,
-    on one set of buffers (the op allocates its own in every call)."""
+    """Device ms of each of the backward's kernels alone (``BWD_STAGES`` of
+    x's dtype), and of all of them, on one set of buffers (the op allocates
+    its own in every call)."""
     x, dt, A, B, C, init, dy, dstate = args
     buffers = ssd_ops.bwd_buffers(x, B, q)
-    stages = {**ssd_ops.BWD_STAGES, "all": ssd_ops.BWD_ALL_STAGES}
+    stages = {**ssd_ops.BWD_STAGES[x.dtype], "all": ssd_ops.BWD_ALL_STAGES}
     return {name: time_ms(lambda *a, bit=bit: ssd_ops.launch_bwd(
                 *a, q, init, dstate, buffers, bit), [(x, dt, A, B, C, dy)], 3)
             for name, bit in stages.items()}
 
 
+def ssd_bwd_repeats(args, q: int) -> None:
+    """No float atomics: two backward calls on the same inputs give
+    bit-equal dx, ddt, dA, dB, dC and dinit (``torch.equal``)."""
+    x, dt, A, B, C, init, dy, dstate = args
+    first = ssd_ops.ssd_chunk_scan_bwd(x, dt, A, B, C, dy, chunk=q,
+                                       init=init, dstate=dstate)
+    second = ssd_ops.ssd_chunk_scan_bwd(x, dt, A, B, C, dy, chunk=q,
+                                        init=init, dstate=dstate)
+    torch.cuda.synchronize()
+    differ = [n for n, a, b in zip(SSD_BWD_NAMES, first, second)
+              if not torch.equal(a, b)]
+    log(f"  ssd bwd {tuple(x.shape)} {str(x.dtype)[6:]}: two calls "
+        f"bit-equal: {not differ}")
+    if differ:
+        raise AssertionError(f"ssd_chunk_scan_bwd {x.dtype}: {differ} differ "
+                             "between two calls on the same inputs")
+
+
 def phase_ssd_bwd(gen) -> dict:
     """The SSD backward kernels against ``ssd_bwd_ref`` at SSD_BWD_SHAPES in
-    both dtypes, then, at mamba2-2.7b's train shape in bf16, the op's time
-    in a CUDA graph, each kernel alone, the plain version's time and the
-    bound (no single PyTorch call computes it: ``library_ms`` null)."""
+    both dtypes and two calls bit-equal at the train shape in both, then,
+    at mamba2-2.7b's train shape in bf16, the op's time in a CUDA graph,
+    each kernel alone, the plain version's time and the bound (no single
+    PyTorch call computes it: ``library_ms`` null)."""
+    main_shape = SSD_BWD_SHAPES[0][0]
+    q = min(main_shape[6], main_shape[1])
     for dtype in (torch.float32, torch.bfloat16):
         for shape, with_state in SSD_BWD_SHAPES:
-            if shape != SSD_BWD_SHAPES[0][0] or dtype == torch.float32:
-                _ssd_bwd_check(gen, shape, dtype, with_state)
+            if shape != main_shape or dtype == torch.float32:
+                args, _ = _ssd_bwd_check(gen, shape, dtype, with_state)
+                if shape == main_shape:
+                    ssd_bwd_repeats(args, q)
+                del args
             torch.cuda.empty_cache()
-    main_shape = SSD_BWD_SHAPES[0][0]
     dtype = torch.bfloat16
     args, err = _ssd_bwd_check(gen, main_shape, dtype, False)
+    ssd_bwd_repeats(args, q)
     b, s, h, p, g, n, chunk = main_shape
-    q = min(chunk, s)
     x, dt, A, B, C, init, dy, dstate = args
     ms = time_ms(lambda *a: ssd_ops.ssd_chunk_scan_bwd(*a, chunk=q),
                  [(x, dt, A, B, C, dy)], 3)
     kernels_ms = ssd_bwd_kernel_times(args, q)
-    log("  ssd bwd bf16 train shape, each kernel alone and all four on one "
+    log("  ssd bwd bf16 train shape, each kernel alone and all five on one "
         "set of buffers (ms): " + json.dumps(kernels_ms))
     plain_ms = time_eager_ms(lambda: ssd_bwd_ref(x, dt, A, B, C, None, dy,
                                                  None, chunk=q), 1)
     torch.cuda.empty_cache()
     flops, nbytes = cost.ssd_bwd_work(*main_shape, x.element_size())
     bms, by = bound_ms(flops, nbytes, dtype)
+    plan = ssd_ops.bwd_bf16_plan(b, s, h, p, g, n, q)
     rec = _kernel_record("ssd_chunk_scan_bwd", "ssd_chunk_scan_bwd",
                          max_abs_err=err, ms=ms, plain_ms=plain_ms,
                          bound_ms=bms, bound_by=by, library_ms=None)
@@ -1001,10 +1038,8 @@ def phase_ssd_bwd(gen) -> dict:
                     "library_ms": None, "bound_us": bms * 1e3,
                     "flops": flops, "bytes": nbytes,
                     "achieved_tflops": flops / ms / 1e9,
-                    "kernels_ms": kernels_ms,
-                    "tile": ssd_ops.bwd_plan(q, n, p),
-                    "smem": ssd_ops.bwd_smem_bytes(ssd_ops.bwd_plan(q, n, p),
-                                                   q, n, p),
+                    "kernels_ms": kernels_ms, "grids": plan.grids,
+                    "smem": plan.smem, "scratch_bytes": plan.scratch_bytes,
                     "check_launches": ssd_ops.ssd_chunk_scan_bwd.launches}))
     return rec
 

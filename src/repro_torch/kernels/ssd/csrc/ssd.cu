@@ -95,6 +95,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "ssd_common.cuh"
+
 namespace {
 
 constexpr int THREADS = 256;
@@ -467,7 +469,6 @@ int launch_f32(const void* x, const void* dt, const void* A, const void* B,
 }
 
 // =================================================================== bf16
-typedef __nv_bfloat16 bf16;
 constexpr int TQ = 64;        // q rows per scan block; key rows per state tile
 constexpr int QMAX = 256;     // longest chunk: one scan thread per key
 constexpr int HT_MAX = 16;    // heads per scan block, at most
@@ -487,49 +488,6 @@ struct Dims {
   long long Rs;               // floats per (batch, chunk) row of the scratch:
                               // the h states, h * n * p rounded up to 256
 };
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
-                  "l"(src), "r"(src_bytes) : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(static_cast<uint32_t>(__cvta_generic_to_shared(p))));
-}
-
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const bf16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(static_cast<uint32_t>(__cvta_generic_to_shared(p))));
-}
-
-__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
-                                    uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t bits(__nv_bfloat162 v) {
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// (u, v) as bf16 pairs hi and lo with hi + lo = (u, v) to ~2^-16 relative
-__device__ __forceinline__ void split2(float u, float v, uint32_t& hi,
-                                      uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(u, v);
-  const float2 hf = __bfloat1622float2(h);
-  hi = bits(h);
-  lo = bits(__floats2bfloat162_rn(u - hf.x, v - hf.y));
-}
 
 // Inclusive scan of one value per thread over the block: prefix (threads
 // <= tid) or suffix (threads >= tid).  The callers' values are all of one
@@ -577,17 +535,6 @@ __device__ void load_rows(bf16* dst, int ld, const bf16* src, long long rs,
   }
 }
 
-// The state entering chunk c, element e = (hh * n + n_idx) * p + p_idx of
-// a (batch, chunk) row of the scratch, which holds the h heads' states one
-// after the other: the hi bf16 halves of each group of 64 consecutive
-// elements, then their lo halves, fill that group's 256 bytes (the state
-// pass writes them over the group's fp32 chunk state, in place; a group
-// may span two heads).  hi_at(e) is the bf16 offset of e's hi half; its lo
-// half is 64 further.
-__device__ __forceinline__ long long hi_at(long long e) {
-  return 128 * (e >> 6) + (e & 63);
-}
-
 // NP x CP state tiles Sh, Sl (row stride ld) of the head whose state
 // starts at element e0 of the row at `planes`; zero past n and p.  vec:
 // 16-byte cp.async copies (p, so e0 too, a multiple of 8).
@@ -613,15 +560,6 @@ __device__ void load_state(bf16* Sh, bf16* Sl, int ld, const bf16* planes,
       Sl[r * ld + c] = in ? planes[at + 64] : zero;
     }
   }
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
 
 // Shared bytes of the two kernels; ops.py::bf16_plan mirrors them.

@@ -19,13 +19,31 @@ the card: one per call, whatever the number of kernels.
   and the chunks' decay sums; the kernels allocate nothing.
 * fp32 x/B/C: one kernel per call, on the CUDA cores in fp32.
 
-The backward (``csrc/ssd_bwd.cu``, any x/B/C dtype of the forward): four
-kernels per call, on the CUDA cores in fp32: the states entering and the
-state gradients leaving each chunk, the key rows' gradients (dx, dB), the
-query rows' (dC), and the decay gradient (ddt, dA) with the sums of dB and
-dC over each group's head tiles.  ``bwd_buffers`` allocates its outputs
-and scratch; ``launch_bwd`` launches chosen kernels of it on them,
-uncounted, so that ``chip_smoke.py`` can time and check each stage alone.
+The backward (``csrc/ssd_bwd.cu``, any x/B/C dtype of the forward):
+
+* bf16: five kernels per call, every product on the tensor cores
+  (``mma.sync``, hi + lo halves for operands that are not bf16 data):
+  the chunk-local state terms; the state pass (the states entering and
+  the gradients leaving each chunk, packed hi / lo); the key rows' dx and
+  dB, with C B^T once per tile of heads and dy x'^T once per head and tile
+  pair, whose decayed M2 it hands to the queries kernel (through a
+  scratch of at most ``M2_BYTES``: longer calls run keys and queries over
+  slices of the (chunk, batch) rows); the query rows' dC; and the decay
+  gradient (ddt, dA) with the sums of dB and dC over each group's head
+  tiles.  d cum's intra terms are sums of one fp32 copy of the scores in
+  the keys kernel (they cancel in d(dt A)).  What bounds
+  it: the tensor cores at ~0.12 ms at mamba2's train shape; the kernels
+  execute ~2.3x those FLOPs and move ~1.6 GB of scratch (PERF.md has what
+  holds them above it).  ``bwd_bf16_plan`` gives grids, shared memory and
+  scratch, and raises before any launch on a shape they do not take.
+* fp32: four kernels per call on the CUDA cores in fp32, the first
+  design's, kept for full fp32 products (its 5e-4 tolerance and phase 4's
+  card-vs-CPU gradients rest on them); ``bwd_plan`` gives their tile.
+
+``bwd_buffers`` allocates the outputs and scratch (``BwdBuffers``);
+``launch_bwd`` launches chosen kernels (bits of ``BWD_STAGES[dtype]``) on
+them, uncounted, so that ``chip_smoke.py`` can time and check each stage
+alone.
 
 The kernels read x, B and C through their batch and sequence strides, so
 the model hands them slices of one convolution output without copying; the
@@ -62,14 +80,26 @@ _ARGTYPES = {
 }
 _ENTRY = {torch.float32: "ssd_chunk_scan_f32",
           torch.bfloat16: "ssd_chunk_scan_bf16"}
-# the backward's kernels, as bits of the ``stages`` of launch_bwd
-BWD_STAGES = {"states": 1, "keys": 2, "queries": 4, "finish": 8}
-BWD_ALL_STAGES = 15
+# the backward's kernels of each entry, as bits of the ``stages`` of
+# launch_bwd; BWD_ALL_STAGES runs either whole
+BWD_STAGES = {torch.float32: {"states": 1, "keys": 2, "queries": 4,
+                              "finish": 8},
+              torch.bfloat16: {"chunk": 1, "pass": 2, "keys": 4,
+                               "queries": 8, "finish": 16}}
+BWD_ALL_STAGES = 31
 BWD_HEADS = 16              # heads of one group per keys / queries block
+BWD_TILE = 64               # bf16: rows of a key or query tile
+M2_BYTES = 1 << 29          # bf16: the most M2 scratch of one call; longer
+                            # calls run keys and queries over slices of it
 _BWD_ENTRY = {torch.float32: "ssd_chunk_scan_bwd_f32",
               torch.bfloat16: "ssd_chunk_scan_bwd_bf16"}
-_BWD_ARGTYPES = [ctypes.c_void_p] * 20 + [ctypes.c_int] * 9 \
+# fp32: 20 tensors, (b, s, h, p, g, n, chunk, tile, heads); bf16: 23
+# tensors, (b, s, h, p, g, n, chunk, heads, M2 rows); then both the strides,
+# the stages and the stream
+_BWD_ARGTYPES = {
+    dtype: [ctypes.c_void_p] * k + [ctypes.c_int] * 9
     + [ctypes.c_longlong] * 6 + [ctypes.c_int, ctypes.c_void_p]
+    for dtype, k in ((torch.float32, 20), (torch.bfloat16, 23))}
 
 
 def _round(v: int, m: int) -> int:
@@ -132,7 +162,7 @@ def bwd_smem_bytes(tile: int, q: int, n: int, p: int) -> dict:
 
 
 def bwd_plan(q: int, n: int, p: int) -> int:
-    """Backward: tile rows for chunk ``q``, d_state ``n`` and head_dim
+    """fp32 backward: tile rows for chunk ``q``, d_state ``n`` and head_dim
     ``p``, chosen as ``plan`` chooses the forward's against the largest
     kernel's shared memory.  Raises ValueError if none fits."""
     for tile in TILES:
@@ -145,6 +175,130 @@ def bwd_plan(q: int, n: int, p: int) -> int:
         f"{TILES[-1]}-row tiles need "
         f"{max(bwd_smem_bytes(TILES[-1], q, n, p).values())} bytes of shared "
         f"memory, above the {SMEM_LIMIT} a block may use")
+
+
+def state_group(n: int, p: int) -> int:
+    """Elements of a packing group of the bf16 backward's state scratch
+    (``packed_at`` in ``csrc/ssd_bwd.cu``): 64 where n p is a multiple of
+    64, else 8, so a small head (jamba's n p = 16) is not padded to 64."""
+    return 64 if (n * p) % 64 == 0 else 8
+
+
+@dataclass(frozen=True)
+class Bf16BwdPlan:
+    """Launch plan of the five bf16 backward kernels; mirrors
+    ``launch_bf16_pp`` and ``chunk_smem`` / ``keys_layout`` /
+    ``queries_layout`` in ``csrc/ssd_bwd.cu``."""
+    pp: int                  # head_dim padded to 16, 32 or 64 (a template)
+    npad: int                # d_state padded to 16
+    qt: int                  # chunk padded to 64 rows
+    heads_per_block: int     # heads of one group per keys / queries block
+    grids: dict              # kernel -> (x, y, z) blocks of 256 threads;
+                             # keys and queries: those of one slice
+    smem: dict               # kernel -> shared bytes of one block
+    state_row: int           # fp32 of a (batch, chunk) row of the two state
+                             # scratches: h heads of n * p rounded up to a
+                             # packing group (each packed hi / lo by the
+                             # state pass)
+    m2_rows: int             # (chunk, batch) rows of a keys / queries slice
+    slices: int              # keys / queries launches of each
+    m2_shape: tuple          # (m2_rows, h, pairs, 2, tm, tm) bf16: M2 = dy
+                             # x'^T o L, hi and lo, of each (q tile, key
+                             # tile) pair, key tile at or before the q tile;
+                             # tm the chunk rounded up to 16, at most 64
+    cols_shape: tuple        # (b, s, h, chunk tiles) fp32: each key tile's
+                             # share of C . dC's intra part of a row; None
+                             # for a chunk of one tile (the keys kernel adds
+                             # it to d cum itself)
+    b_nc: int                # (chunk, batch) rows of the call
+
+    @property
+    def scratch_bytes(self) -> int:
+        cols = _prod(self.cols_shape) if self.cols_shape else 0
+        return 4 * (2 * self.b_nc * self.state_row + cols) \
+            + 2 * _prod(self.m2_shape)
+
+
+def bwd_bf16_plan(b: int, s: int, h: int, p: int, g: int, n: int,
+                  q: int) -> Bf16BwdPlan:
+    """Grids, shared memory and scratch of the bf16 backward for x (b, s,
+    h, p), B/C (b, s, g, n) and chunk ``q`` (s a multiple of q).  Raises
+    ValueError, before any launch, for shapes its kernels do not take: a
+    chunk above 256 rows, d_state above 128, head_dim above 64, more than
+    65535 (chunk, batch) pairs."""
+    if q > QMAX or n > NMAX or p > PMAX:
+        raise ValueError(
+            f"the bf16 SSD backward takes chunks of at most {QMAX} rows, "
+            f"d_state at most {NMAX} and head_dim at most {PMAX}; got chunk "
+            f"{q}, d_state {n}, head_dim {p}")
+    nc = s // q
+    if nc * b > 65535:
+        raise ValueError(f"{nc} chunks x batch {b} exceed the grid's 65535")
+    pp = 16 if p <= 16 else 32 if p <= 32 else 64
+    npad, qt = _round(n, 16), _round(q, BWD_TILE)
+    nt, t = qt // BWD_TILE, BWD_TILE
+    lb, lx = 2 * (npad + 8), 2 * (pp + 8)        # bytes of a padded row
+    heads = min(BWD_HEADS, h // g)
+    tiles = g * -(-(h // g) // heads)
+    smem = {
+        # two ring stages of (B or C rows, x or dy rows), the scaled rows hi
+        # and lo, the rows' two factors and the scan's partials
+        "chunk": 2 * t * (lb + lx) + 2 * t * lx + 4 * (2 * QMAX + 8),
+        # B rows, C B^T per q tile (fp32), x rows of two heads, dS hi and
+        # lo, three stages of (C, dy rows), dt of two heads, the decay tables
+        # (dt A, exp of the per-row and between-block sums), the rows' three
+        # dots of two halves, the warps' column sums of S per q tile
+        "keys": t * lb + 4 * nt * t * t + 2 * t * lx + 2 * npad * lx
+        + 3 * t * (lb + lx) + 4 * 2 * QMAX
+        + 4 * (2 * QMAX + 16 * 16 + 2 * t) + 4 * 2 * 3 * t + 4 * nt * 4 * t,
+        # C rows, B rows of every key tile, dy rows, S_prev hi and lo, three
+        # stages of an M2 tile (hi, lo), dt, exp(cum) and the scan's
+        # partials, the rows' dots
+        "queries": t * lb + nt * t * lb + t * lx + 2 * npad * lx
+        + 3 * 2 * 2 * t * (t + 8) + 4 * QMAX + 4 * (t + 8) + 4 * 2 * t,
+        "pass": 0, "finish": 0}
+    if max(smem.values()) > SMEM_LIMIT:
+        raise ValueError(f"SSD backward, chunk {q}, d_state {n}, head_dim "
+                         f"{p}: {max(smem.values())} bytes of shared memory, "
+                         f"above the {SMEM_LIMIT} a block may use")
+    row = h * _round(n * p, state_group(n, p))
+    finish = h + -(-(b * s * g * n) // THREADS)
+    tm = t if nt > 1 else _round(q, 16)
+    m2_row = h * (nt * (nt + 1) // 2) * 2 * tm * tm    # bf16 of a row
+    rows = min(nc * b, max(1, M2_BYTES // (2 * m2_row)))
+    return Bf16BwdPlan(
+        pp=pp, npad=npad, qt=qt, heads_per_block=heads,
+        grids={"chunk": (nc, h, b), "pass": (h, b, 1),
+               "keys": (tiles, rows, nt), "queries": (tiles, rows, nt),
+               "finish": (finish, 1, 1)},
+        smem=smem, state_row=row, m2_rows=rows, slices=-(-(nc * b) // rows),
+        m2_shape=(rows, h, nt * (nt + 1) // 2, 2, tm, tm),
+        cols_shape=(b, s, h, nt) if nt > 1 else None, b_nc=nc * b)
+
+
+def unpack_states(buf, h: int, n: int, p: int):
+    """(b, nc, h, n, p) fp32 of a bf16 backward's state scratch after its
+    state pass (``Bf16BwdPlan.state_row``): hi + lo of each element."""
+    b, nc, row = buf.shape
+    e, k = n * p, state_group(n, p)
+    planes = buf.view(torch.bfloat16).reshape(b, nc, row // k, 2, k)
+    full = planes[:, :, :, 0].float() + planes[:, :, :, 1].float()
+    return full.reshape(b, nc, h, -1)[..., :e].reshape(b, nc, h, n, p)
+
+
+def bwd_row_dcum(buffers, q: int):
+    """Each row's d cum share (b, s, h) fp32 once the keys and queries
+    kernels ran: the scratch as it is, but where a bf16 chunk spans more
+    than one key tile, plus the key tiles' shares of C . dC (``cols``:
+    those of key tiles at or before the row's), which the finish kernel
+    adds itself."""
+    dcum, cols = buffers.dcum, buffers.cols
+    if cols is None:
+        return dcum
+    b, s, h, nt = cols.shape
+    row = torch.arange(s, device=cols.device) % q // BWD_TILE
+    keep = torch.arange(nt, device=cols.device)[None, :] <= row[:, None]
+    return dcum + torch.where(keep[None, :, None, :], cols, 0.0).sum(-1)
 
 
 @dataclass(frozen=True)
@@ -382,7 +536,7 @@ _lib.impl("ssd_chunk_scan", _op, "CompositeExplicitAutograd")
 def _bwd_entry(dtype):
     """The backward's C entry for ``dtype``, with its argument types."""
     fn = getattr(_build.library("ssd_bwd"), _BWD_ENTRY[dtype])
-    fn.argtypes = _BWD_ARGTYPES
+    fn.argtypes = _BWD_ARGTYPES[dtype]
     fn.restype = ctypes.c_int
     return fn
 
@@ -406,44 +560,92 @@ def bwd_heads(h: int, g: int) -> int:
     return min(BWD_HEADS, h // g)
 
 
-def bwd_buffers(x, B, q: int):
-    """(dx, ddt, dA, dB, dC, dinit) and the scratch of one backward call:
-    the states entering and the gradients leaving each chunk (b, nc, h, n,
-    p), <S_out, dS> (b, nc, h), each row's d cum share (b, s, h) and the
-    head tiles' dB and dC partials (b, s, g x tiles, n), all fp32, with
+@dataclass
+class BwdBuffers:
+    """The outputs and scratch of one backward call (``bwd_buffers``)."""
+    dx: torch.Tensor         # (b, s, h, p), x's dtype
+    ddt: torch.Tensor        # (b, s, h) fp32
+    dA: torch.Tensor         # (h,) fp32
+    dB: torch.Tensor         # (b, s, g, n), B's dtype
+    dC: torch.Tensor         # (b, s, g, n), C's dtype
+    dinit: torch.Tensor      # (b, h, n, p) fp32
+    prev: torch.Tensor       # the states entering each chunk, fp32: (b, nc,
+                             # h, n, p); bf16: (b, nc, state_row), the chunk
+                             # states until the state pass packs them
+    grads: torch.Tensor      # the gradients of the states leaving each
+                             # chunk, the same layout
+    delta: torch.Tensor      # <S_out, dS> (b, nc, h) fp32
+    dcum: torch.Tensor       # each row's d cum share (b, s, h) fp32
+    dBp: torch.Tensor        # the head tiles' dB partials (b, s, g x tiles,
+                             # n) fp32
+    dCp: torch.Tensor        # and dC's
+    tot: torch.Tensor | None = None    # bf16: each chunk's sum of dt A (b,
+                                       # nc, h) fp32
+    m2: torch.Tensor | None = None     # bf16: Bf16BwdPlan.m2_shape
+    cols: torch.Tensor | None = None   # bf16: Bf16BwdPlan.cols_shape
+
+    @property
+    def outputs(self) -> tuple:
+        """(dx, ddt, dA, dB, dC, dinit)."""
+        return self.dx, self.ddt, self.dA, self.dB, self.dC, self.dinit
+
+
+def bwd_buffers(x, B, q: int) -> BwdBuffers:
+    """The outputs and scratch of one backward call (``BwdBuffers``), with
     ``torch.empty`` on x's device."""
     b, s, h, p = x.shape
     g, n = B.shape[2], B.shape[3]
     nc = s // q
     tiles = g * -(-(h // g) // bwd_heads(h, g))
     dev, f32 = x.device, torch.float32
-    return (torch.empty((b, s, h, p), dtype=x.dtype, device=dev),
-            torch.empty((b, s, h), dtype=f32, device=dev),
-            torch.empty((h,), dtype=f32, device=dev),
-            torch.empty((b, s, g, n), dtype=B.dtype, device=dev),
-            torch.empty((b, s, g, n), dtype=B.dtype, device=dev),
-            torch.empty((b, h, n, p), dtype=f32, device=dev),
-            torch.empty((b, nc, h, n, p), dtype=f32, device=dev),
-            torch.empty((b, nc, h, n, p), dtype=f32, device=dev),
-            torch.empty((b, nc, h), dtype=f32, device=dev),
-            torch.empty((b, s, h), dtype=f32, device=dev),
-            torch.empty((b, s, tiles, n), dtype=f32, device=dev),
-            torch.empty((b, s, tiles, n), dtype=f32, device=dev))
+
+    def empty(shape, dtype=f32):
+        return None if shape is None else torch.empty(shape, dtype=dtype,
+                                                      device=dev)
+
+    states, bf16 = (b, nc, h, n, p), {}
+    if x.dtype == torch.bfloat16:
+        pl = bwd_bf16_plan(b, s, h, p, g, n, q)
+        states = (b, nc, pl.state_row)
+        bf16 = dict(tot=empty((b, nc, h)),
+                    m2=empty(pl.m2_shape, torch.bfloat16),
+                    cols=empty(pl.cols_shape))
+    return BwdBuffers(
+        dx=empty((b, s, h, p), x.dtype), ddt=empty((b, s, h)),
+        dA=empty((h,)), dB=empty((b, s, g, n), B.dtype),
+        dC=empty((b, s, g, n), B.dtype), dinit=empty((b, h, n, p)),
+        prev=empty(states), grads=empty(states), delta=empty((b, nc, h)),
+        dcum=empty((b, s, h)), dBp=empty((b, s, tiles, n)),
+        dCp=empty((b, s, tiles, n)), **bf16)
 
 
-def launch_bwd(x, dt, A, B, C, dy, q: int, init, dstate, buffers,
-               stages: int = BWD_ALL_STAGES) -> None:
+_BWD_FIELDS = ("dx", "ddt", "dA", "dB", "dC", "dinit", "prev", "grads",
+               "delta", "dcum", "dBp", "dCp")
+
+
+def launch_bwd(x, dt, A, B, C, dy, q: int, init, dstate,
+               buffers: BwdBuffers, stages: int = BWD_ALL_STAGES) -> None:
     """Launch the backward kernels named by ``stages`` (bits of
-    ``BWD_STAGES``) on ``buffers`` (``bwd_buffers``); all four are
-    ``ssd_chunk_scan_bwd``.  Counts nothing."""
+    ``BWD_STAGES[x.dtype]``) on ``buffers`` (``bwd_buffers``); all of them
+    are ``ssd_chunk_scan_bwd``.  Counts nothing.  The bf16 plan raises
+    before any launch on a shape its kernels do not take."""
     b, s, h, p = x.shape
     g, n = B.shape[2], B.shape[3]
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    tensors = [ptr(getattr(buffers, f)) for f in _BWD_FIELDS]
+    if x.dtype == torch.bfloat16:
+        pl = bwd_bf16_plan(b, s, h, p, g, n, q)
+        tensors += [ptr(buffers.tot), ptr(buffers.m2), ptr(buffers.cols)]
+        ints = (b, s, h, p, g, n, q, bwd_heads(h, g), pl.m2_rows)
+    else:
+        ints = (b, s, h, p, g, n, q, bwd_plan(q, n, p), bwd_heads(h, g))
     err = _bwd_entry(x.dtype)(
         x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
-        C.data_ptr(), None if init is None else init.data_ptr(),
-        dy.data_ptr(), None if dstate is None else dstate.data_ptr(),
-        *(t.data_ptr() for t in buffers), b, s, h, p, g, n, q,
-        bwd_plan(q, n, p), bwd_heads(h, g), *_strides(x, B, C), stages,
+        C.data_ptr(), ptr(init), dy.data_ptr(), ptr(dstate), *tensors, *ints,
+        *_strides(x, B, C), stages,
         torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, "ssd_chunk_scan_bwd")
 
@@ -470,8 +672,8 @@ ssd_chunk_scan_bwd.launches = 0
 
 
 def _bwd_op(x, dt, A, B, C, dy, q, init, dstate):
-    """``repro_torch::ssd_chunk_scan_bwd``: one backward call (four
-    kernels) -> (dx, ddt, dA, dB, dC, dinit)."""
+    """``repro_torch::ssd_chunk_scan_bwd``: one backward call (five bf16
+    kernels or four fp32) -> (dx, ddt, dA, dB, dC, dinit)."""
     _check_device(x, dt, A, B, C, init)
     for name, t in (("dy", dy), ("dstate", dstate)):
         if t is not None and t.device != x.device:
@@ -479,7 +681,7 @@ def _bwd_op(x, dt, A, B, C, dy, q, init, dstate):
     buffers = bwd_buffers(x, B, q)
     ssd_chunk_scan_bwd.launches += 1
     launch_bwd(x, dt, A, B, C, dy, q, init, dstate, buffers)
-    return buffers[:6]
+    return buffers.outputs
 
 
 _lib.define("ssd_chunk_scan_bwd(Tensor x, Tensor dt, Tensor A, Tensor B, "

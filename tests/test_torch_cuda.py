@@ -759,37 +759,46 @@ def test_ssd_bwd_kernel_vs_plain_on_card(cuda, shape, dtype, with_state):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("shape", [(2, 128, 4, 16, 1, 32, 32),
-                                   (1, 300, 6, 64, 3, 64, 100)])
+                                   (1, 300, 6, 64, 3, 64, 100),
+                                   (1, 128, 4, 1, 1, 16, 16)])
 def test_ssd_bwd_stages_vs_plain_stages_on_card(cuda, shape, dtype):
     """Each kernel's scratch against its plain stage: the states entering
-    and the gradients leaving each chunk, <S_out, dS> and dinit (states);
-    dx and x . dx' (keys); each row's d cum (queries)."""
+    and the gradients leaving each chunk, <S_out, dS> and dinit (fp32: the
+    states kernel; bf16: the chunk states and the state pass, the states
+    packed hi / lo, in groups of 8 at jamba's widths); dx and x . dx'
+    (keys); each row's d cum (queries)."""
     from repro_torch.kernels.ssd import ref as R
 
     x, dt, A, B, C, init, dy, dstate = _ssd_bwd_inputs(cuda, shape, dtype,
                                                        with_state=True)
-    q = shape[6]
+    h, p, n, q = shape[2], shape[3], shape[5], shape[6]
     buffers = ssd_ops.bwd_buffers(x, B, q)
     st = R.bwd_chunk_states(x, dt, A, B, C, dy, q)
     prev, grads, dinit, delta = R.bwd_state_pass(*st, init, dstate)
     dx, _, _, direct, dcum = R.bwd_chunk_grads(x, dt, A, B, C, dy, q, prev,
                                                grads)
     tol = SSD_TOL[dtype]
-    ssd_ops.launch_bwd(x, dt, A, B, C, dy, q, init, dstate, buffers,
-                       ssd_ops.BWD_STAGES["states"])
-    torch.cuda.synchronize()
-    for got, want in ((buffers[6], prev), (buffers[7], grads),
-                      (buffers[8], delta), (buffers[5], dinit)):
+    stages = ssd_ops.BWD_STAGES[x.dtype]
+
+    def run(*names):
+        ssd_ops.launch_bwd(x, dt, A, B, C, dy, q, init, dstate, buffers,
+                           sum(stages[name] for name in names))
+        torch.cuda.synchronize()
+
+    run(*(("chunk", "pass") if x.dtype == torch.bfloat16 else ("states",)))
+    got_prev, got_grads = buffers.prev, buffers.grads
+    if x.dtype == torch.bfloat16:
+        got_prev, got_grads = (ssd_ops.unpack_states(t, h, n, p)
+                               for t in (got_prev, got_grads))
+    for got, want in ((got_prev, prev), (got_grads, grads),
+                      (buffers.delta, delta), (buffers.dinit, dinit)):
         torch.testing.assert_close(got, want, atol=tol, rtol=tol)
-    ssd_ops.launch_bwd(x, dt, A, B, C, dy, q, init, dstate, buffers,
-                       ssd_ops.BWD_STAGES["keys"])
-    torch.cuda.synchronize()
-    torch.testing.assert_close(buffers[0].float(), dx, atol=tol, rtol=tol)
-    torch.testing.assert_close(buffers[1], direct, atol=tol, rtol=tol)
-    ssd_ops.launch_bwd(x, dt, A, B, C, dy, q, init, dstate, buffers,
-                       ssd_ops.BWD_STAGES["queries"])
-    torch.cuda.synchronize()
-    torch.testing.assert_close(buffers[9], dcum, atol=tol, rtol=tol)
+    run("keys")
+    torch.testing.assert_close(buffers.dx.float(), dx, atol=tol, rtol=tol)
+    torch.testing.assert_close(buffers.ddt, direct, atol=tol, rtol=tol)
+    run("queries")
+    torch.testing.assert_close(ssd_ops.bwd_row_dcum(buffers, q), dcum,
+                               atol=tol, rtol=tol)
 
 
 @pytest.mark.cuda

@@ -3,6 +3,8 @@
     python3 tools/kernel_variants.py tools/ssd_variants.json [--rounds 2]
     python3 tools/kernel_variants.py tools/flash_bwd_variants.json \
         --kernel flash_attention_bwd
+    python3 tools/kernel_variants.py tools/ssd_bwd_variants.json \
+        --kernel ssd_bwd
 
 The JSON file maps a name to a list of text patches ``[file, old, new]``
 (``file`` relative to the repo root, ``old`` found exactly once; ``[]`` is
@@ -18,7 +20,10 @@ not checked: a variant may leave a part out) and
 ``chip_smoke.ssd_kernel_times``; for ``flash_attention_bwd`` its bf16
 gradients checked against ``attention_bwd_ref`` over chip_smoke's sweep and
 at the training shape (a variant that fails prints why and is dropped) and
-``chip_smoke.flash_bwd_kernel_times``.  Needs one CUDA device and nvcc.
+``chip_smoke.flash_bwd_kernel_times``; for ``ssd_bwd`` the largest errors
+of its bf16 backward against ``ssd_bwd_ref`` at mamba2-2.7b's train shape
+(reported, not checked) and ``chip_smoke.ssd_bwd_kernel_times``.  Needs one
+CUDA device and nvcc.
 """
 
 from __future__ import annotations
@@ -57,6 +62,21 @@ args, err = cs._flash_bwd_check(gen, shape, torch.bfloat16)
 kw = dict(causal=shape[6], window=shape[7], softcap=shape[8])
 print(json.dumps({"variant": sys.argv[1], "round": int(sys.argv[2]),
                   "max_abs_err": err, **cs.flash_bwd_kernel_times(args, kw)}))
+""", "ssd_bwd": """
+import json, sys, torch
+import chip_smoke as cs
+shape, _ = cs.SSD_BWD_SHAPES[0]
+q = min(shape[6], shape[1])
+args = cs._ssd_bwd_inputs(torch.Generator(device="cuda").manual_seed(0),
+                          shape, torch.bfloat16, False)
+x, dt, A, B, C, init, dy, dstate = args
+got = cs.ssd_ops.ssd_chunk_scan_bwd(x, dt, A, B, C, dy, chunk=q)
+want = cs.ssd_bwd_ref(x, dt, A, B, C, None, dy, None, chunk=q)
+errs = {n: cs.max_err(g, w) for n, g, w in zip(cs.SSD_BWD_NAMES, got, want)}
+del got, want
+torch.cuda.empty_cache()
+print(json.dumps({"variant": sys.argv[1], "round": int(sys.argv[2]),
+                  "max_abs_err": errs, **cs.ssd_bwd_kernel_times(args, q)}))
 """}
 
 
